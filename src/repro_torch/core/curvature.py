@@ -22,6 +22,18 @@ and Gauss-Newton vector products in three modes.
 ``grad_reduce`` is applied once per product. Flash attention's
 ``second_order_tangents`` context has no counterpart here: the MLP slice
 has no attention.
+
+**Block products.** Every operator built here also carries ``op.block``:
+the same operator applied to a stacked tree of s tangents (a leading s axis
+on every leaf), which ``core.blocks.block_op_from_single`` hands to the
+s-step solvers. The reference gets it from ``jax.vmap`` over the cached map.
+``torch.func.vmap`` cannot trace through ``torch.autograd.grad`` on a graph
+built outside it, so in the cached modes a block is ONE batched backward
+(``is_grads_batched=True``) through the same cached graph: s tangents, one
+sweep, no second primal pass. ``naive`` and the remat'd ``chunked`` bodies
+recompute the primal in-call, so there the direct product is vmapped
+(still once per chunk, as the single product). ``grad_reduce`` is applied
+once per block.
 """
 from __future__ import annotations
 
@@ -29,7 +41,7 @@ from typing import Any, Callable, Optional
 
 import torch
 import torch.utils.checkpoint
-from torch.func import grad, jvp, vjp
+from torch.func import grad, jvp, vjp, vmap
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 LossFn = Callable[[Any, Any], torch.Tensor]
@@ -47,6 +59,17 @@ def _cast_like(v, params):
 
 def _maybe_reduce(out, grad_reduce):
     return out if grad_reduce is None else grad_reduce(out)
+
+
+def _with_block(single: Op, block: Op) -> Op:
+    """Attach the block form (stacked tangents → stacked products) to a
+    single-tangent operator."""
+    single.block = block
+    return single
+
+
+def _reduced(fn: Op, grad_reduce) -> Op:
+    return lambda v: _maybe_reduce(fn(v), grad_reduce)
 
 
 def _batch_size(batch) -> int:
@@ -114,16 +137,20 @@ def _check_mode(mode: str):
         raise ValueError(f"curvature mode must be one of {MODES}, got {mode!r}")
 
 
-def _grad_outputs(outs, cotangents, wrt):
-    """Σ cotangentᵀ ∂outs/∂wrt, with zeros for inputs the outputs miss."""
+def _grad_outputs(outs, cotangents, wrt, batched: bool = False):
+    """Σ cotangentᵀ ∂outs/∂wrt, with zeros for inputs the outputs miss.
+    ``batched``: each cotangent carries a leading s axis and the result is
+    the s products from one batched backward."""
+    lead = (tree_leaves(cotangents)[0].shape[0],) if batched else ()
+    zeros = lambda w: torch.zeros(lead + tuple(w.shape), dtype=w.dtype, device=w.device)
     pairs = [(o, c) for o, c in zip(outs, cotangents)
              if o is not None and o.requires_grad]
     if not pairs:
-        return [torch.zeros_like(w) for w in wrt]
+        return [zeros(w) for w in wrt]
     res = torch.autograd.grad(
         [o for o, _ in pairs], wrt, grad_outputs=[c for _, c in pairs],
-        retain_graph=True, allow_unused=True)
-    return [torch.zeros_like(w) if r is None else r for r, w in zip(res, wrt)]
+        retain_graph=True, allow_unused=True, is_grads_batched=batched)
+    return [zeros(w) if r is None else r for r, w in zip(res, wrt)]
 
 
 def _cached_hessian(scalar_fn, params):
@@ -136,11 +163,12 @@ def _cached_hessian(scalar_fn, params):
         g = torch.autograd.grad(f, prim, create_graph=True, allow_unused=True)
     g = [torch.zeros_like(p) if x is None else x for x, p in zip(g, prim)]
 
-    def hvp(v):
+    def product(v, batched):
         with torch.enable_grad():
-            out = _grad_outputs(g, tree_leaves(v), prim)
+            out = _grad_outputs(g, tree_leaves(v), prim, batched)
         return tree_unflatten(out, spec)
 
+    hvp = _with_block(lambda v: product(v, False), lambda V: product(V, True))
     return (f.detach(), tree_unflatten([x.detach() for x in g], spec), hvp)
 
 
@@ -153,16 +181,19 @@ def _chunked_product(direct, params, batch, chunk_size, grad_reduce) -> Op:
     if rem is not None:
         parts.append((rem, n_rem))
 
-    def op(v):
+    def product(v, fn, lead):
         vc = _cast_like(v, params)
-        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+        acc = tree_map(lambda p: torch.zeros(lead + tuple(p.shape), dtype=torch.float32,
                                              device=p.device), params)
         for c, n_c in parts:
-            acc = tree_map(lambda a, g: a + n_c * g.float(), acc, direct(vc, c))
+            acc = tree_map(lambda a, g: a + n_c * g.float(), acc, fn(vc, c))
         out = tree_map(lambda a, p: (a / B).to(p.dtype), acc, params)
         return _maybe_reduce(out, grad_reduce)
 
-    return op
+    block_direct = vmap(direct, in_dims=(0, None))
+    return _with_block(
+        lambda v: product(v, direct, ()),
+        lambda V: product(V, block_direct, (tree_leaves(V)[0].shape[0],)))
 
 
 def _hvp_direct(loss_fn, params, vc, batch):
@@ -183,11 +214,10 @@ def make_hvp_op(
     """Exact stochastic Hessian operator in the given mode (module docstring)."""
     _check_mode(mode)
     if mode == "naive":
-        def hvp(v):
-            out = _hvp_direct(loss_fn, params, _cast_like(v, params), batch)
-            return _maybe_reduce(out, grad_reduce)
-
-        return hvp
+        direct = lambda vc: _hvp_direct(loss_fn, params, vc, batch)
+        return _with_block(
+            _reduced(lambda v: direct(_cast_like(v, params)), grad_reduce),
+            _reduced(lambda V: vmap(direct)(_cast_like(V, params)), grad_reduce))
 
     B = _batch_size(batch)
     if mode == "chunked" and remat and 0 < chunk_size < B:
@@ -200,11 +230,7 @@ def make_hvp_op(
     else:
         scalar = lambda p: loss_fn(p, batch)
     _, _, lin = _cached_hessian(scalar, params)
-
-    def hvp(v):
-        return _maybe_reduce(lin(_cast_like(v, params)), grad_reduce)
-
-    return hvp
+    return _lift_cached(lin, params, grad_reduce)
 
 
 def shared_primal_hvp(
@@ -217,11 +243,16 @@ def shared_primal_hvp(
     """One primal pass for the whole outer step: (f0, g, hvp_op). The cached
     gradient graph gives f0 and g, and every H·v is a backward through it."""
     f0, g, lin = _cached_hessian(lambda p: loss_fn(p, batch), params)
+    return f0, _maybe_reduce(g, grad_reduce), _lift_cached(lin, params, grad_reduce)
 
-    def hvp(v):
-        return _maybe_reduce(lin(_cast_like(v, params)), grad_reduce)
 
-    return f0, _maybe_reduce(g, grad_reduce), hvp
+def _lift_cached(inner: Op, params, grad_reduce) -> Op:
+    """A product over a cached graph (``inner`` and ``inner.block``) as an
+    operator: tangents cast to the params' dtypes, ``grad_reduce`` once per
+    product or block."""
+    return _with_block(
+        _reduced(lambda v: inner(_cast_like(v, params)), grad_reduce),
+        _reduced(lambda V: inner.block(_cast_like(V, params)), grad_reduce))
 
 
 def _gnvp_once(model_out_fn: OutFn, out_loss_fn: OutLossFn, params, batch) -> Op:
@@ -241,16 +272,16 @@ def _gnvp_once(model_out_fn: OutFn, out_loss_fn: OutLossFn, params, batch) -> Op
                                  zd, create_graph=True, allow_unused=True)
         gz = [torch.zeros_like(d) if x is None else x for x, d in zip(gz, zd)]
 
-    def gnvp(v):
+    def product(v, batched):
         vl = tree_leaves(v)
         with torch.enable_grad():
-            jv = _grad_outputs(jt, vl, u)
-            hjv = _grad_outputs(gz, jv, zd)
+            jv = _grad_outputs(jt, vl, u, batched)
+            hjv = _grad_outputs(gz, jv, zd, batched)
             hjv = [h.to(zl.dtype) for h, zl in zip(hjv, z_leaves)]
-            out = _grad_outputs(z_leaves, hjv, prim)
+            out = _grad_outputs(z_leaves, hjv, prim, batched)
         return tree_unflatten(out, spec)
 
-    return gnvp
+    return _with_block(lambda v: product(v, False), lambda V: product(V, True))
 
 
 def _gnvp_direct(model_out_fn: OutFn, out_loss_fn: OutLossFn, params, vc, batch):
@@ -281,21 +312,15 @@ def make_gnvp_op(
     flat with or without ``remat``."""
     _check_mode(mode)
     if mode == "naive":
-        def gnvp(v):
-            out = _gnvp_direct(model_out_fn, out_loss_fn, params,
-                               _cast_like(v, params), batch)
-            return _maybe_reduce(out, grad_reduce)
-
-        return gnvp
+        direct = lambda vc: _gnvp_direct(model_out_fn, out_loss_fn, params, vc, batch)
+        return _with_block(
+            _reduced(lambda v: direct(_cast_like(v, params)), grad_reduce),
+            _reduced(lambda V: vmap(direct)(_cast_like(V, params)), grad_reduce))
 
     B = _batch_size(batch)
     if mode == "linearize" or chunk_size <= 0 or chunk_size >= B:
-        inner = _gnvp_once(model_out_fn, out_loss_fn, params, batch)
-
-        def gnvp(v):
-            return _maybe_reduce(inner(_cast_like(v, params)), grad_reduce)
-
-        return gnvp
+        return _lift_cached(_gnvp_once(model_out_fn, out_loss_fn, params, batch),
+                            params, grad_reduce)
 
     return _chunked_product(
         lambda vc, c: _gnvp_direct(model_out_fn, out_loss_fn, params, vc, c),
@@ -303,9 +328,13 @@ def make_gnvp_op(
 
 
 def make_damped(op: Op, lam) -> Op:
-    """B(v) = G(v) + λ v  (Algorithm 1 line 4)."""
+    """B(v) = G(v) + λ v  (Algorithm 1 line 4); a block form of ``op``
+    carries over, so the damped block is G's block plus λ·V."""
 
     def damped(v):
         return tree_map(lambda g, x: g + lam * x, op(v), v)
 
+    block = getattr(op, "block", None)
+    if block is not None:
+        damped.block = lambda V: tree_map(lambda g, x: g + lam * x, block(V), V)
     return damped

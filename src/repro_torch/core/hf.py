@@ -12,9 +12,11 @@ The Krylov solve runs on the ``HFConfig.krylov_backend`` vector backend:
 recurrences run through the fused CUDA kernels on the card). The curvature
 operator comes from ``core.curvature`` in ``HFConfig.curvature_mode``.
 
-Not in this package yet: the s-step solvers (``sstep_s > 1``) and the
-overlapped schedule (``overlap=True``) raise ``NotImplementedError``; the
-reference's telemetry hooks have no counterpart.
+``sstep_s > 1`` runs the s-step solvers of ``core.sstep`` (one Gram
+reduction per cycle of s iterations, in the ``sstep_basis`` polynomial
+basis, the chains paired into block products of the same cached operator);
+``overlap=True`` double-buffers their cycles and pairs the line-search
+trials. The reference's telemetry hooks have no counterpart yet.
 """
 from __future__ import annotations
 
@@ -34,9 +36,11 @@ from .curvature import (
     make_hvp_op,
     shared_primal_hvp,
 )
+from .blocks import block_op_from_single
 from .krylov import BACKENDS, get_backend
 from .line_search import armijo
 from .solvers import bicgstab, cg, hutchinson_diag, pcg, sign_correct
+from .sstep import sstep_bicgstab, sstep_cg
 from .tree_math import (
     tree_axpy,
     tree_axpy_cast,
@@ -86,10 +90,10 @@ class HFConfig:
     curvature_mode: str = "linearize"
     curvature_chunk_size: int = 0
     curvature_remat: bool = True
-    sstep_s: int = 1              # > 1 not in this package yet
+    sstep_s: int = 1
     sstep_solver: str = "auto"
     sstep_basis: str = "monomial"
-    overlap: bool = False         # True not in this package yet
+    overlap: bool = False
     reject_nonfinite: bool = True
     strict_descent: bool = False
     descent_guard: float = 0.0
@@ -171,10 +175,6 @@ def hf_step(
     """
     dev = resolve_device(device)
     check_on(dev, tree_leaves((params, state, batch, hvp_batch)), "hf_step input")
-    if config.sstep_s > 1:
-        raise NotImplementedError("s-step Krylov solvers (sstep_s > 1) are not ported yet")
-    if config.overlap:
-        raise NotImplementedError("the overlapped schedule (overlap=True) is not ported yet")
     needs_gn = config.solver in ("gn_cg", "hybrid_cg")
     if needs_gn and (model_out_fn is None or out_loss_fn is None):
         raise ValueError(f"solver {config.solver} requires model_out_fn/out_loss_fn")
@@ -198,7 +198,7 @@ def hf_step(
     else:
         g, f0 = grad_and_value(loss_fn)(params, batch)
         f0 = f0.detach()
-        if grad_reduce is not None:
+        if grad_reduce is not None and not config.overlap:
             g = grad_reduce(g)
         if not use_gn:
             exact = make_hvp_op(loss_fn, params, hvp_batch, **curv_kw)
@@ -206,6 +206,11 @@ def hf_step(
         G = make_gnvp_op(model_out_fn, out_loss_fn, params, hvp_batch, **curv_kw)
     else:
         G = exact
+    if not shared and grad_reduce is not None and config.overlap:
+        # Overlapped schedule: the gradient reduce is issued after the
+        # operator build, which does not depend on it (the reference's
+        # hidden grad-reduce); its first consumer is the Krylov rhs.
+        g = grad_reduce(g)
 
     lam = state.lam
     A = make_damped(G, lam)
@@ -224,7 +229,18 @@ def hf_step(
     if config.precondition:
         diag = hutchinson_diag(G, b, state.step)
         m_inv = tree_map(lambda d: 1.0 / (torch.abs(d) + lam) ** config.precond_alpha, diag)
-    if config.solver == "bicgstab":
+    if config.sstep_s > 1:
+        # s-step solve: one Gram reduction per cycle, the chains paired into
+        # block products of the SAME cached operator (no second primal).
+        kind = config.sstep_solver
+        if kind == "auto":
+            kind = "bicgstab" if config.solver == "bicgstab" else "cg"
+        sstep_fn = sstep_bicgstab if kind == "bicgstab" else sstep_cg
+        res = sstep_fn(A, b, x0, lam=lam, s=config.sstep_s,
+                       max_iters=config.max_cg_iters, tol=config.cg_tol,
+                       backend=krylov_be, A_block=block_op_from_single(A),
+                       basis=config.sstep_basis, overlap=config.overlap)
+    elif config.solver == "bicgstab":
         res = bicgstab(A, b, x0, lam=lam, max_iters=config.max_cg_iters,
                        tol=config.cg_tol, M_inv=m_inv, backend=krylov_be)
     elif m_inv is not None:
@@ -280,6 +296,7 @@ def hf_step(
     ls = armijo(
         lambda p: loss_fn(p, batch), params, f0, delta, g_dot_delta,
         c=config.ls_c, beta=config.ls_beta, max_backtracks=config.max_backtracks,
+        paired=config.overlap,
     )
 
     # ---- Alg.2 lines 8,10: LM damping + parameter update --------------------
@@ -316,7 +333,11 @@ def hf_step(
 
     new_state = HFState(lam=lam_new, prev_delta=delta_taken, use_gn=use_gn_next,
                         step=state.step + 1)
-    false = torch.zeros((), dtype=torch.bool, device=dev)
+    is_sstep = torch.tensor(config.sstep_s > 1, device=dev)
+
+    def sstep_flag(v):
+        return torch.logical_and(is_sstep, torch.as_tensor(v, device=dev))
+
     metrics = {
         "loss": f0,
         "loss_new": ls.f_new,
@@ -327,13 +348,22 @@ def hf_step(
         "ls_evals": ls.n_evals,
         "cg_iters": res.iters,
         "cg_residual": res.residual,
+        # Blocking reductions of the solve: one per iteration, or one Gram
+        # per s-step cycle (plus the fallback's iterations).
         "krylov_syncs": res.syncs,
-        # gradient reduce + one per Krylov iteration + one per line-search trial
-        "blocking_syncs": 1 + res.syncs + ls.n_evals,
-        # s-step metrics: always False for the standard recurrences
-        "sstep_fallback": false,
-        "sstep_basis_fallback": false,
-        "sstep_basis_degraded": false,
+        # Blocking round-trips of the step: the gradient reduce, the Krylov
+        # syncs and one per line-search trip. Under overlap the gradient
+        # reduce is hidden behind the operator build and the trials come in
+        # pairs: syncs + ⌈E/2⌉.
+        "blocking_syncs": (
+            res.syncs + (ls.n_evals + 1) // 2 if config.overlap
+            else 1 + res.syncs + ls.n_evals
+        ),
+        "sstep_fallback": sstep_flag(res.breakdown),
+        # the part of sstep_fallback caused by the Gram guard
+        "sstep_basis_fallback": sstep_flag(res.basis_breakdown),
+        # an adaptive basis degraded to the monomial one mid-solve
+        "sstep_basis_degraded": sstep_flag(res.basis_degraded),
         "nc_found": res.nc_found,
         "nc_used": take_nc,
         "nc_curv": res.nc_curv,

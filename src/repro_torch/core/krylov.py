@@ -8,9 +8,18 @@
   ``kernels.ops`` (CUDA on the card, their plain versions on the CPU). The
   operator still sees trees (``wrap_op`` unflattens at the boundary).
 
+Both backends also speak *blocks*, ordered stacks of s Krylov vectors
+(tree: a tree with a leading s axis on every leaf; flat: an (s, n) f32
+matrix): ``block_stack``/``block_col``, ``lift_block``/``lower_block`` to and
+from the stacked-tree form the block curvature products take,
+``wrap_block_op``, ``gram`` (the (s_u, s_v) matrix of ⟨u_i, v_j⟩ in one
+reduction: per-leaf contractions on the tree backend, the ``dots_block``
+kernel on the flat one) and ``block_combine`` (coeffs @ block).
+
 Shared components: the negative-curvature probe (``nc_init``/``nc_probe``),
-free CG-backtracking (``phi_value``/``best_init``/``best_update``) and the
-breakdown-guarded division (``guard_div``).
+free CG-backtracking (``phi_value``/``best_init``/``best_update``), the
+breakdown-guarded division (``guard_div``), and the free spectral estimates
+of the s-step solvers (``ritz_from_segment``, ``leja_order``).
 """
 from __future__ import annotations
 
@@ -79,6 +88,36 @@ class TreeVectorBackend:
         d1 = None if r0s is None else tm.tree_dot(r, r0s)
         return r, d1, tm.tree_dot(r, r)
 
+    # A tree block is the stacked tree the block curvature products take, so
+    # lift_block/lower_block/wrap_block_op are identities here.
+    def block_stack(self, vecs):
+        return tree_map(lambda *xs: torch.stack(xs), *vecs)
+
+    def block_col(self, block, j):
+        return tree_map(lambda x: x[j], block)
+
+    def lift_block(self, stacked):
+        return stacked
+
+    def lower_block(self, block):
+        return block
+
+    def wrap_block_op(self, A_blk: Op) -> Op:
+        return A_blk
+
+    def gram(self, U, V):
+        """(s_u, s_v) matrix of ⟨u_i, v_j⟩ in f32: a sum of per-leaf
+        contractions over every non-stack axis."""
+        parts = [
+            x.reshape(x.shape[0], -1).float() @ y.reshape(y.shape[0], -1).float().T
+            for x, y in zip(tree_leaves(U), tree_leaves(V))
+        ]
+        return torch.sum(torch.stack(parts), dim=0)
+
+    def block_combine(self, coeffs, U):
+        """coeffs @ block: (s,) coeffs → one vector, (m, s) → an m-block."""
+        return tree_map(lambda x: torch.tensordot(coeffs, x.float(), dims=1), U)
+
 
 class FlatVectorBackend:
     """Flat-buffer backend over the fused kernels.
@@ -140,6 +179,38 @@ class FlatVectorBackend:
         r, d1, d2 = kops.bicgstab_residual_dots(
             s, As, s if r0s is None else r0s, gamma)
         return r, (None if r0s is None else d1), d2
+
+    # A flat block is an (s, n) f32 matrix, one row per Krylov vector.
+    def block_stack(self, vecs):
+        return torch.stack(vecs)
+
+    def block_col(self, block, j):
+        return block[j]
+
+    def lift_block(self, stacked):
+        """Stacked tree (leading s axis on every leaf) → (s, n) matrix."""
+        leaves = tree_leaves(stacked)
+        s = leaves[0].shape[0]
+        return torch.cat([l.float().reshape(s, -1) for l in leaves], dim=1)
+
+    def lower_block(self, block):
+        """(s, n) matrix → stacked tree (leading s axis on every leaf)."""
+        s = block.shape[0]
+        parts = torch.split(block, self._sizes, dim=1)
+        return tree_unflatten(
+            [p.reshape((s,) + tuple(sh)) for p, sh in zip(parts, self._shapes)],
+            self._spec)
+
+    def wrap_block_op(self, A_blk: Op) -> Op:
+        return lambda M: self.lift_block(A_blk(self.lower_block(M)))
+
+    def gram(self, U, V):
+        """(s_u, s_v) Gram in one pass over both blocks: the ``dots_block``
+        kernel on the card, its plain version on the CPU."""
+        return kops.gram_block(U, V)
+
+    def block_combine(self, coeffs, U):
+        return coeffs @ U
 
 
 BACKENDS = ("tree", "flat")
@@ -217,3 +288,61 @@ def guard_div(num, den, eps: float = EPS):
     """num/den with breakdown detection: returns (quotient, |den|<eps)."""
     bad = torch.abs(den) < eps
     return num / torch.where(bad, torch.ones_like(den), den), bad
+
+
+def ritz_from_segment(Gp, Tp, *, jitter: float = 1e-6):
+    """Ritz values of A on the leading d = L−1 vectors of one Krylov chain,
+    from the chain's (L, L) Gram ``Gp`` and its (L, d) recurrence block
+    ``Tp`` (column j holds the coordinates of A·v_j in the chain):
+    ⟨v_i, A v_j⟩ = (Gp @ Tp)[i, j], so the Ritz values solve K y = θ M y
+    with K = sym((Gp Tp)[:d, :d]), M = Gp[:d, :d], both normalized to
+    correlation scale and reduced by Cholesky.
+
+    Returns ``(ritz, ok)``: θ ascending and a validity flag (finite inputs,
+    a Cholesky that succeeded, finite eigenvalues). ``torch.linalg.cholesky``
+    raises where ``jnp.linalg.cholesky`` returns NaNs, so the factor comes
+    from ``cholesky_ex`` and ``info != 0`` counts as not finite.
+    """
+    L = Gp.shape[0]
+    d = L - 1
+    eye = torch.eye(d, dtype=Gp.dtype, device=Gp.device)
+    ok = torch.logical_and(torch.isfinite(Gp).all(), torch.isfinite(Tp).all())
+    Gp = torch.where(torch.isfinite(Gp), Gp, torch.zeros_like(Gp))
+    K = (Gp @ torch.where(ok, Tp, torch.zeros_like(Tp)))[:d, :d]
+    M = Gp[:d, :d]
+    dg = torch.sqrt(torch.clamp_min(torch.diagonal(M), 0.0))
+    dn = 1.0 / torch.clamp_min(dg, EPS)
+    scale = torch.outer(dn, dn)
+    Kn = 0.5 * (K + K.T) * scale
+    Mn = M * scale
+    C, info = torch.linalg.cholesky_ex(Mn + jitter * eye)
+    ok = torch.logical_and(ok, torch.logical_and(info == 0, torch.isfinite(C).all()))
+    Cs = torch.where(ok, C, eye)
+    Y = torch.linalg.solve_triangular(Cs, Kn, upper=False)
+    S = torch.linalg.solve_triangular(Cs, Y.T, upper=False)
+    S = 0.5 * (S + S.T)
+    ritz = torch.linalg.eigvalsh(torch.where(torch.isfinite(S), S, torch.zeros_like(S)))
+    return ritz, torch.logical_and(ok, torch.isfinite(ritz).all())
+
+
+def leja_order(vals):
+    """Deterministic magnitude-damped Leja ordering of real shift values:
+    θ_k maximizes |θ| · Π_{j<k} |θ − θ_j| over the remainder (so θ_0 =
+    argmax |θ|); ties resolve to the first occurrence. The |θ| weight sweeps
+    the early shifts down from the dominant end of the spectrum, which
+    conditions f32 Newton chains better (see the reference's docstring)."""
+    n = vals.shape[0]
+    tiny = torch.tensor(1e-30, dtype=vals.dtype, device=vals.device)
+    out = torch.zeros_like(vals)
+    taken = torch.zeros((n,), dtype=torch.bool, device=vals.device)
+    logp = torch.log(torch.maximum(torch.abs(vals), tiny))
+    neg_inf = torch.full_like(vals, float("-inf"))
+    for k in range(n):
+        # gather/scatter with the index on the device: indexing with a 0-dim
+        # tensor would read it on the host, twice per step
+        i = torch.argmax(torch.where(taken, neg_inf, logp)).reshape(1)
+        t = vals.gather(0, i)
+        out[k:k + 1] = t
+        taken = taken.scatter(0, i, True)
+        logp = logp + torch.log(torch.maximum(torch.abs(vals - t), tiny))
+    return out

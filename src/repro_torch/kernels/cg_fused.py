@@ -1,7 +1,7 @@
 """Builds and launches the fused Krylov CUDA kernels (``csrc/cg_fused.cu``).
 
 Twins of the Pallas kernels in ``repro/kernels/cg_fused.py`` (``dot2``,
-``x_update``, ``residual_dots``). The extension is compiled for ``sm_90a``
+``x_update``, ``residual_dots``, ``dots_block``). The extension is compiled for ``sm_90a``
 with ``torch.utils.cpp_extension.load`` at first use, into ``_build/`` beside
 this file (listed in ``.gitignore``); nothing is built when the module is
 imported. Every wrapper checks device, dtype, shape and contiguity and
@@ -18,6 +18,8 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = (_CSRC / "cg_fused_bind.cpp", _CSRC / "cg_fused.cu")
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17")
+
+GRAM_MAX_ROWS = 32  # most rows of U and of V that ``dots_block`` takes (csrc)
 
 _ext = None
 build_seconds = None  # wall time of the one build in this process
@@ -88,3 +90,28 @@ def residual_dots(s, As, r0s, gamma):
     _check_scalar(gamma, "gamma", s)
     r, d = extension().residual_dots(s, As, r0s, gamma)
     return r, d[0], d[1]
+
+
+def dots_block(U, V):
+    """The (s_u, s_v) Gram matrix U @ V.T of two stacked flat f32 CUDA
+    blocks, (s_u, n) and (s_v, n), in one pass over both."""
+    for t, name in ((U, "U"), (V, "V")):
+        if not isinstance(t, torch.Tensor):
+            raise ValueError(f"{name} must be a tensor")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.ndim != 2 or t.shape[1] == 0:
+            raise ValueError(f"{name} must be 2-D with n > 0 columns, got {tuple(t.shape)}")
+        if not 1 <= t.shape[0] <= GRAM_MAX_ROWS:
+            raise ValueError(
+                f"{name} must have 1 to {GRAM_MAX_ROWS} rows, got {t.shape[0]}")
+    for t, name in ((U, "U"), (V, "V")):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if V.device != U.device or V.shape[1] != U.shape[1]:
+        raise ValueError(
+            f"V {tuple(V.shape)} on {V.device} does not match U {tuple(U.shape)} "
+            f"on {U.device}")
+    return extension().dots_block(U, V)

@@ -6,6 +6,9 @@
 //   residual_dots_partial + sum2_final
 //                               <- _residual_dots_kernel / residual_dots
 //                                  r = s - g*As, <r,r0s>, <r,r>
+//   dots_block_partial + gram_final
+//                               <- _dots_block_kernel / dots_block
+//                                  the (s_u, s_v) Gram U V^T of two stacked blocks
 //
 // Bound on the card: bytes. Each is one streaming pass over flat f32 vectors
 // (a few flops per 4-byte element, far below the H100's ~20 flop/byte
@@ -16,6 +19,22 @@
 // thread block writes its partial sum to its own slot. sum2_final then adds
 // the slots in a fixed order in one block. No float atomics: the result is
 // the same from run to run, which the flat Krylov backend's parity needs.
+//
+// dots_block is bound by bytes too: at the s-step shapes (s_u <= 17 rows
+// against s_v <= 20, n = 1.7M) it does s_u*s_v / (s_u + s_v) ~ 9 FMAs per
+// 4-byte element read, half the f32 balance. Each element of U and V is read
+// from device memory once: a block stages a column tile of all s_u + s_v
+// rows in shared memory, and every value there feeds s_v (or s_u) FMAs from
+// registers. Warp g of a block owns U rows 2g, 2g+1 against every V row, so
+// its accumulators (2 x MV) stay in registers, and its lanes split the
+// tile's columns. Staging issues eight independent loads per thread before
+// storing any, so a tile costs about one memory latency, not one per load,
+// and up to s_v = 24 two blocks share an SM, so one stages while the other
+// computes.
+// The TPU kernel zero-padded the rows to 8 and the columns to its 16k block
+// and carried one partial per grid step; here the tail is masked, each
+// block reduces its lanes in a fixed order and writes its (s_u, s_v) partial
+// to its own slot, and gram_final adds the slots in block order.
 //
 // The scalars (alpha, gamma) are read from device memory, so the solver
 // never copies them to the host. Kernels launch on the caller's stream and
@@ -122,6 +141,106 @@ x_update(const float* __restrict__ x, const float* __restrict__ p,
   }
 }
 
+// ---------------------------------------------------------------- Gram --
+constexpr int kGramMaxRows = 32;  // most rows of U and of V
+constexpr int kGramRU = 2;        // U rows per warp
+constexpr int kGramTile = 128;    // columns staged per step
+constexpr int kGramUnroll = 8;    // loads in flight per thread while staging
+
+// Warp g owns U rows 2g, 2g+1 against every V row; its 32 lanes split the
+// tile's columns, and a warp reduction in a fixed order gives the block's
+// (su, sv) partial, which lane 0 writes to part[blockIdx.x].
+template <int MV>
+__global__ void __launch_bounds__(32 * kGramMaxRows / kGramRU, MV <= 24 ? 2 : 1)
+dots_block_partial(const float* __restrict__ U, const float* __restrict__ V, int su,
+                   int sv, int64_t n, float* __restrict__ part) {
+  __shared__ float tu[kGramMaxRows][kGramTile];
+  __shared__ float tv[kGramMaxRows][kGramTile];
+  const int lane = threadIdx.x & 31;
+  const int r0 = (threadIdx.x >> 5) * kGramRU;
+  const int total = (su + sv) * kGramTile;
+  float acc[kGramRU][MV];
+#pragma unroll
+  for (int i = 0; i < kGramRU; ++i)
+#pragma unroll
+    for (int j = 0; j < MV; ++j) acc[i][j] = 0.f;
+
+  const int64_t ntiles = (n + kGramTile - 1) / kGramTile;
+  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const int64_t c0 = t * kGramTile;
+    // Stage the tile: kGramUnroll independent loads per thread in flight,
+    // then their stores; the ragged tail reads as zero.
+    for (int base = threadIdx.x; base < total; base += kGramUnroll * blockDim.x) {
+      float val[kGramUnroll];
+#pragma unroll
+      for (int k = 0; k < kGramUnroll; ++k) {
+        const int idx = base + k * blockDim.x;
+        const int row = idx / kGramTile;
+        const int64_t col = c0 + idx % kGramTile;
+        val[k] = 0.f;
+        if (idx < total && col < n) {
+          val[k] = row < su ? U[(int64_t)row * n + col] : V[(int64_t)(row - su) * n + col];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kGramUnroll; ++k) {
+        const int idx = base + k * blockDim.x;
+        if (idx < total) {
+          const int row = idx / kGramTile;
+          const int c = idx % kGramTile;
+          if (row < su) tu[row][c] = val[k];
+          else tv[row - su][c] = val[k];
+        }
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kGramTile / 32; ++k) {
+      const int c = lane + 32 * k;
+      float u[kGramRU];
+#pragma unroll
+      for (int i = 0; i < kGramRU; ++i) u[i] = r0 + i < su ? tu[r0 + i][c] : 0.f;
+#pragma unroll
+      for (int j = 0; j < MV; ++j) {
+        const float v = j < sv ? tv[j][c] : 0.f;
+#pragma unroll
+        for (int i = 0; i < kGramRU; ++i) acc[i][j] = fmaf(u[i], v, acc[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+
+  const int64_t slot = (int64_t)blockIdx.x * su * sv;
+#pragma unroll
+  for (int i = 0; i < kGramRU; ++i)
+#pragma unroll
+    for (int j = 0; j < MV; ++j) {
+      const float w = warp_sum(acc[i][j]);
+      if (lane == 0 && r0 + i < su && j < sv) part[slot + (r0 + i) * sv + j] = w;
+    }
+}
+
+// out[e] = sum over blocks b = 0, 1, ... of part[b][e], in that order.
+__global__ void __launch_bounds__(kThreads)
+gram_final(const float* __restrict__ part, int nb, int entries, float* __restrict__ out) {
+  for (int e = threadIdx.x; e < entries; e += kThreads) {
+    float acc = 0.f;
+    for (int b = 0; b < nb; ++b) acc += part[(int64_t)b * entries + e];
+    out[e] = acc;
+  }
+}
+
+using GramKernel = void (*)(const float*, const float*, int, int, int64_t, float*);
+
+GramKernel gram_kernel(int sv) {
+  if (sv <= 8) return dots_block_partial<8>;
+  if (sv <= 16) return dots_block_partial<16>;
+  if (sv <= 24) return dots_block_partial<24>;
+  return dots_block_partial<32>;
+}
+
+int gram_threads(int su) { return 32 * ((su + kGramRU - 1) / kGramRU); }
+
 int blocks_for(int64_t n, int cap) {
   const int64_t b = (n + kThreads - 1) / kThreads;
   return (int)(b < 1 ? 1 : (b > cap ? cap : b));
@@ -153,6 +272,32 @@ void cg_x_update(const float* x, const float* p, const float* s, const float* al
                  const float* gamma, int64_t n, float* out, cudaStream_t stream) {
   x_update<<<blocks_for(n, kMaxElementwiseBlocks), kThreads, 0, stream>>>(
       x, p, s, alpha, gamma, n, out);
+}
+
+// Most rows of U and of V that cg_dots_block_partial takes.
+int cg_gram_max_rows() { return kGramMaxRows; }
+
+// Partial slots (thread blocks) for an (su, sv) Gram over n columns: one
+// tile each at most, and no more blocks than fit on the card at once.
+int cg_gram_blocks(int su, int sv, int64_t n) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gram_kernel(sv),
+                                                gram_threads(su), 0);
+  const int64_t resident = (int64_t)(per_sm < 1 ? 1 : per_sm) * (sms < 1 ? 1 : sms);
+  const int64_t ntiles = (n + kGramTile - 1) / kGramTile;
+  return (int)(ntiles < resident ? ntiles : resident);
+}
+
+void cg_dots_block_partial(const float* U, const float* V, int su, int sv, int64_t n,
+                           float* part, int nb, cudaStream_t stream) {
+  gram_kernel(sv)<<<nb, gram_threads(su), 0, stream>>>(U, V, su, sv, n, part);
+}
+
+void cg_gram_final(const float* part, int nb, int entries, float* out,
+                   cudaStream_t stream) {
+  gram_final<<<1, kThreads, 0, stream>>>(part, nb, entries, out);
 }
 
 }  // extern "C"

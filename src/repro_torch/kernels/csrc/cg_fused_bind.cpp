@@ -22,6 +22,12 @@ void cg_residual_dots_partial(const float* s, const float* As, const float* r0s,
 void cg_sum2_final(const float* part, int nb, float* out, cudaStream_t stream);
 void cg_x_update(const float* x, const float* p, const float* s, const float* alpha,
                  const float* gamma, int64_t n, float* out, cudaStream_t stream);
+int cg_gram_max_rows();
+int cg_gram_blocks(int su, int sv, int64_t n);
+void cg_dots_block_partial(const float* U, const float* V, int su, int sv, int64_t n,
+                           float* part, int nb, cudaStream_t stream);
+void cg_gram_final(const float* part, int nb, int entries, float* out,
+                   cudaStream_t stream);
 }
 
 namespace {
@@ -111,8 +117,38 @@ std::vector<at::Tensor> residual_dots(const at::Tensor& s, const at::Tensor& As,
   return {r, sum2(part, nb, stream)};
 }
 
+// The (su, sv) Gram matrix U V^T of two stacked (rows, n) f32 blocks.
+at::Tensor dots_block(const at::Tensor& U, const at::Tensor& V) {
+  for (const auto* t : {&U, &V}) {
+    TORCH_CHECK(t->is_cuda(), "U and V must be CUDA tensors");
+    TORCH_CHECK(t->scalar_type() == at::kFloat, "U and V must be float32");
+    TORCH_CHECK(t->dim() == 2 && t->size(1) > 0, "U and V must be 2-D with n > 0 columns");
+    TORCH_CHECK(t->is_contiguous(), "U and V must be contiguous");
+    TORCH_CHECK(t->size(0) >= 1 && t->size(0) <= cg_gram_max_rows(),
+                "U and V must have 1 to ", cg_gram_max_rows(), " rows, got ", t->size(0));
+  }
+  TORCH_CHECK(V.device() == U.device(), "V must be on ", U.device());
+  TORCH_CHECK(V.size(1) == U.size(1), "U and V must have the same number of columns");
+  c10::cuda::CUDAGuard guard(U.device());
+  cudaStream_t stream = c10::cuda::getCurrentCUDAStream().stream();
+  const int su = (int)U.size(0);
+  const int sv = (int)V.size(0);
+  const int64_t n = U.size(1);
+  const int nb = cg_gram_blocks(su, sv, n);
+  auto part = at::empty({(int64_t)nb * su * sv}, U.options());
+  auto out = at::empty({su, sv}, U.options());
+  cg_dots_block_partial(U.data_ptr<float>(), V.data_ptr<float>(), su, sv, n,
+                        part.data_ptr<float>(), nb, stream);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  cg_gram_final(part.data_ptr<float>(), nb, su * sv, out.data_ptr<float>(), stream);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("dot2", &dot2, "(<u,v>, <v,v>) of flat f32 CUDA vectors");
   m.def("x_update", &x_update, "x + alpha*p + gamma*s of flat f32 CUDA vectors");
   m.def("residual_dots", &residual_dots, "r = s - gamma*As with <r,r0s> and <r,r>");
+  m.def("dots_block", &dots_block, "Gram matrix U V^T of two stacked f32 CUDA blocks");
+  m.def("gram_max_rows", &cg_gram_max_rows, "most rows of U and of V dots_block takes");
 }

@@ -1,6 +1,6 @@
 """Dispatch for the flat Krylov backend's fused recurrences (twin of
-``repro/kernels/ops.py`` ``bicgstab_x_update``, ``bicgstab_residual_dots`` and
-``dot2``).
+``repro/kernels/ops.py`` ``bicgstab_x_update``, ``bicgstab_residual_dots``,
+``dot2`` and ``gram_block``).
 
 A CUDA tensor goes to the hand-written kernel (``kernels.cg_fused``); a CPU
 tensor goes to the plain version (``kernels.ref``); anything else raises.
@@ -16,7 +16,7 @@ import torch
 
 from . import cg_fused, ref
 
-LAUNCHES = {"dot2": 0, "x_update": 0, "residual_dots": 0}
+LAUNCHES = {"dot2": 0, "x_update": 0, "residual_dots": 0, "dots_block": 0}
 
 
 def reset_launches() -> None:
@@ -59,3 +59,29 @@ def dot2(u, v):
     out = cg_fused.dot2(u, v)
     LAUNCHES["dot2"] += 1
     return out
+
+
+def gram_block(U, V):
+    """Gram matrix U @ V.T of two stacked flat f32 blocks, (s_u, n) and
+    (s_v, n) → (s_u, s_v): the s-step solvers' one reduction per cycle."""
+    if _route(U) == "cpu":
+        return ref.gram_block_ref(U, V)
+    return gram_tiles(U, V, _dots_block)
+
+
+def _dots_block(U, V):
+    out = cg_fused.dots_block(U, V)
+    LAUNCHES["dots_block"] += 1
+    return out
+
+
+def gram_tiles(U, V, kernel, rows: int = cg_fused.GRAM_MAX_ROWS):
+    """U @ V.T from ``kernel`` calls on row blocks of at most ``rows`` rows
+    each: one call when both blocks fit (every shape of the s-step path up
+    to s = 8; overlapped Bi-CG-STAB at s = 4 stacks 33 rows)."""
+    if U.shape[0] <= rows and V.shape[0] <= rows:
+        return kernel(U, V)
+    return torch.cat([
+        torch.cat([kernel(U[i:i + rows], V[j:j + rows])
+                   for j in range(0, V.shape[0], rows)], dim=1)
+        for i in range(0, U.shape[0], rows)], dim=0)

@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the fused Krylov kernels (twins of
 ``repro/kernels/ref.py`` ``bicgstab_x_update_ref``, ``bicgstab_residual_dots_ref``
-and ``dot2_ref``).
+``dot2_ref`` and, for ``ops.gram_block``, ``gram_block_ref``).
 
 ``kernels.ops`` runs these for tensors on the CPU; ``chip_smoke.py`` holds
 each CUDA kernel against them on the card. Sums are ``torch.sum`` of the
@@ -10,6 +10,10 @@ one sequence (4e-5 relative error at n = 200k), ``torch.sum`` pairwise.
 from __future__ import annotations
 
 import torch
+
+# Column block of the reference's Gram kernel (``repro/kernels/cg_fused.py``
+# ``BLOCK_GRAM``): the plain Gram sums per-block partials in block order.
+BLOCK_GRAM = 16 * 1024
 
 
 def x_update_ref(x, p, s, alpha, gamma):
@@ -27,3 +31,14 @@ def dot2_ref(u, v):
     """(<u,v>, <v,v>) in f32."""
     uf, vf = u.float(), v.float()
     return torch.sum(uf * vf), torch.sum(vf * vf)
+
+
+def gram_block_ref(U, V):
+    """U @ V.T of (s_u, n) and (s_v, n) blocks in f32: per-column-block
+    partials over ``BLOCK_GRAM`` columns, added in block order (the
+    reference's order of summation)."""
+    Uf, Vf = U.float(), V.float()
+    out = torch.zeros((Uf.shape[0], Vf.shape[0]), dtype=torch.float32, device=Uf.device)
+    for c in range(0, Uf.shape[1], BLOCK_GRAM):
+        out = out + Uf[:, c:c + BLOCK_GRAM] @ Vf[:, c:c + BLOCK_GRAM].T
+    return out

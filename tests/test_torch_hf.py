@@ -54,7 +54,7 @@ def setup():
 
 
 def _both_steps(s, hvp_rows=None, **kw):
-    cfg = dict(init_damping=LAM, cg_tol=0.0, max_cg_iters=4, **kw)
+    cfg = {**dict(init_damping=LAM, cg_tol=0.0, max_cg_iters=4), **kw}
     jcfg, tcfg = jhf.HFConfig(**cfg), hf.HFConfig(**cfg)
     jm, tm = s["jm"], s["tm"]
     jhvp = s["jb"] if hvp_rows is None else {k: x[:hvp_rows] for k, x in s["jb"].items()}
@@ -70,10 +70,12 @@ def _both_steps(s, hvp_rows=None, **kw):
     return (jp, jst, jmet), (tp, tst, tmet)
 
 
-def _assert_step_matches(j, t):
+def _assert_step_matches(j, t, unheld=()):
     (jp, jst, jmet), (tp, tst, tmet) = j, t
     assert set(tmet) == set(hf.METRICS_SCHEMA) == set(jmet)
     for k in hf.METRICS_SCHEMA:
+        if k in unheld:
+            continue
         a, b = float(jmet[k]), float(tmet[k])
         if k in EXACT:
             assert a == b, k
@@ -167,8 +169,94 @@ def test_config_fields_and_defaults_match_reference():
 
 @pytest.mark.parametrize("kw", [dict(sstep_s=2), dict(overlap=True)])
 def test_unported_schedules_raise(setup, kw):
-    s = setup
-    cfg = hf.HFConfig(**kw)
-    with pytest.raises(NotImplementedError):
-        hf.hf_step(s["tm"].loss_fn, s["tp"], hf.hf_init(s["tp"], cfg, device="cpu"),
-                   s["tb"], s["tb"], cfg, device="cpu")
+    """The two schedules that raised NotImplementedError before the s-step
+    port now run, and match the reference step for step (at λ = 5 and
+    cg_tol = 1e-3: see ``test_sstep_hf_step_matches_reference``)."""
+    _assert_step_matches(*_both_steps(setup, krylov_jitter=0.0, init_damping=5.0,
+                                      cg_tol=1e-3, max_cg_iters=8, **kw))
+
+
+# ------------------------------------------------------------ s-step steps --
+# (solver, sstep_s, basis, overlap, backend): the s-step solve of every
+# solver family and basis on both backends, the overlapped schedule at s > 1,
+# and overlap at s = 1 (the standard solver with the paired line search).
+SSTEP_STEPS = [
+    ("gn_cg", 2, "monomial", False, "flat"),
+    ("gn_cg", 2, "monomial", False, "tree"),
+    ("gn_cg", 4, "newton", False, "flat"),
+    ("hessian_cg", 2, "chebyshev", False, "tree"),
+    ("bicgstab", 2, "newton", False, "flat"),
+    ("bicgstab", 2, "monomial", False, "tree"),
+    ("gn_cg", 2, "monomial", True, "flat"),
+    ("bicgstab", 1, "monomial", True, "flat"),
+]
+
+
+@pytest.mark.parametrize("solver,s,basis,overlap,backend", SSTEP_STEPS,
+                         ids=["-".join(map(str, c)) for c in SSTEP_STEPS])
+def test_sstep_hf_step_matches_reference(setup, solver, s, basis, overlap, backend):
+    """Parameters to 1e-4, every metric, and ``krylov_syncs`` equal to the
+    sync model's Krylov term (the comm model's blocking syncs less the
+    gradient and line-search terms) where no fallback fired. No jitter;
+    λ = 5 (the damped Hessian is then positive definite) and cg_tol = 1e-3,
+    so the solve ends on its tolerance while the residual is well above
+    round-off. At λ = 100 the damped operator is within 4% of 100·I: the
+    first two iterations cut the residual by 1e-6, and with cg_tol = 0 the
+    later s-step cycles run on round-off (their Gram guards and drift
+    verdicts then differ between any two implementations)."""
+    from benchmarks.comm_model import hf_sstep_syncs_per_iteration
+
+    j, t = _both_steps(setup, solver=solver, sstep_s=s, sstep_basis=basis,
+                       overlap=overlap, krylov_backend=backend, krylov_jitter=0.0,
+                       max_cg_iters=8, init_damping=5.0, cg_tol=1e-3)
+    m = t[2]
+    # A CG cycle whose chains are 4 or more applications deep reports its
+    # final residual and its NC probe as Gram quadratic forms that f32
+    # round-off moves by ~10%: the reference's own tree and flat backends
+    # give cg_residual 5.5e-3 and 6.0e-3 on the gn_cg s=4 newton step, and a
+    # negative raw curvature on the positive semi-definite GN operator
+    # (measured). The residual is held to a hundredfold cut of the first
+    # one (x0 = 0, so ‖r0‖ = ‖g‖).
+    deep_cg = solver != "bicgstab" and s * (2 if overlap else 1) >= 4
+    unheld = {"cg_residual", "nc_curv", "nc_lambda"} if deep_cg else ()
+    _assert_step_matches(j, t, unheld=unheld)
+    if deep_cg:
+        assert 0 < float(m["cg_residual"]) < 1e-2 * float(m["grad_norm"])
+    K, E = int(m["cg_iters"]), int(m["ls_evals"])
+    kind = "bicgstab" if solver == "bicgstab" else "cg"
+    total = hf_sstep_syncs_per_iteration(K, E, s, solver=kind, basis=basis, overlap=overlap)
+    krylov = total - ((E + 1) // 2 if overlap else 1 + E)
+    if not bool(m["sstep_fallback"]):
+        assert int(m["krylov_syncs"]) == krylov
+    assert int(m["blocking_syncs"]) == total
+
+
+def test_twin_backend_parity_bicgstab_s2():
+    """Twin of ``test_sstep.py::TestHFStepSStep::test_backend_parity[bicgstab-2]``
+    (fails under jax 0.9.0): its MLP (8, 16, 4), data and config on both
+    backends. The reference's own tree and flat steps part there (that is
+    the failure), so the port is held to every count both reference
+    backends report alike, and its parameters on each backend to the
+    reference's on that backend within 1e-4 or ten times the reference's
+    own tree-vs-flat distance."""
+    dims = (8, 16, 4)
+    jm = jax_build_mlp(dims)
+    jp = jm.init(jax.random.PRNGKey(1))
+    jb = jax_dataset(jax.random.PRNGKey(0), 64, 8, 4)
+    s = dict(jm=jm, jp=jp, jb=jb, tm=build_mlp(dims, device="cpu"),
+             tp=params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu"),
+             tb=batch_from_numpy({k: np.asarray(x) for k, x in jb.items()}, "cpu"))
+    out = {be: _both_steps(s, solver="bicgstab", max_cg_iters=8, init_damping=5.0,
+                           krylov_backend=be, sstep_s=2) for be in ("tree", "flat")}
+    jt, jf = out["tree"][0], out["flat"][0]
+    for k in ("cg_iters", "krylov_syncs", "blocking_syncs", "sstep_fallback"):
+        if float(jt[2][k]) == float(jf[2][k]):
+            for be in ("tree", "flat"):
+                assert float(out[be][1][2][k]) == float(jt[2][k]), k
+    own = max(float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
+              for a, b in zip(jax.tree_util.tree_leaves(jt[0]),
+                              jax.tree_util.tree_leaves(jf[0])))
+    for (jp2, _, _), (tp2, _, _) in out.values():
+        for a, b in zip(jax.tree_util.tree_leaves(jp2), tree_leaves(tp2)):
+            np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-4,
+                                       atol=max(1e-4, 10 * own))
