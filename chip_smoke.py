@@ -5,10 +5,11 @@
 
 Phases, each printed on lines of its own; any failure exits non-zero:
 
-1. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+1. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
+             (``cg_fused.cu`` and ``flash_attention.cu``, one extension);
              print the build time and the card's name and power limit.
-2. kernels — each kernel against its plain PyTorch version on the card at
-             n = 1,722,293 (the TIMIT MLP's parameter count) and n = 65,537:
+2. kernels — each Krylov kernel against its plain PyTorch version on the card
+             at n = 1,722,293 (the TIMIT MLP's parameter count) and n = 65,537:
              relative error (≤ 1e-5), time with L2 cold and warm, the plain
              version's time, a library yardstick where one exists, and the
              bound (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s).
@@ -16,9 +17,19 @@ Phases, each printed on lines of its own; any failure exits non-zero:
    s-step path's shapes: (17, 20), (17, 17), (9, 12) and (9, 9) rows at
    n = 1,722,293 and (9, 17) at n = 65,537, relative error ≤ 1e-5 of max|G|,
    with ``U @ V.T`` (TF32 off) as its library yardstick.
-3. slice   — the main path: ``hf_init`` and 3 Bi-CG-STAB ``hf_step``s, then
-             1 ``gn_cg`` step, on the paper's TIMIT MLP (360-512x3-1973) with
-             the flat Krylov backend, a synthetic batch of 4096 and the
+   The four flash-attention kernels (forward, dQ, dK/dV, JVP) are held
+   against their plain versions on every case of ``FLASH_CASES`` in f32 and
+   bf16: relative error of max|plain| ≤ 1e-5 in f32 and ≤ 1e-2 in bf16
+   (against the plain version in f32 from the same bf16 inputs; bf16 output
+   rounding alone is ~4e-3), and the same against the plain version in
+   float64; times with L2 cold and warm, the plain version's, the library
+   yardstick (``scaled_dot_product_attention`` forward, and its backward for
+   dQ and dK/dV together) where one computes the same function, and the
+   bound (bytes over 3.35 TB/s, or the operations the mask lets through over
+   989 TFLOP/s in bf16 and 67 TFLOP/s in f32).
+3. slice   — the MLP main path: ``hf_init`` and 3 Bi-CG-STAB ``hf_step``s,
+             then 1 ``gn_cg`` step, on the paper's TIMIT MLP (360-512x3-1973)
+             with the flat Krylov backend, a synthetic batch of 4096 and the
              curvature batch as its first 1024 rows. The kernels' launch
              counts are zeroed just before and read just after.
 4. s-step  — the s-step path on the same slice: 2 outer steps from ``hf_init``
@@ -39,6 +50,25 @@ Phases, each printed on lines of its own; any failure exits non-zero:
              gn_cg step at 16 Krylov iterations, each with its wall, busy
              share, top kernels and host reads (synchronizing calls counted
              with ``torch.cuda.set_sync_debug_mode``).
+7. transformer — the transformer main path through
+             ``repro_torch.launch.train.train``: Qwen1.5-0.5B at full width
+             and depth (464,118,784 parameters, bf16, random weights from
+             seed 0), flash attention, flat backend, batch 8 x 512, curvature
+             batch 2 x 512, max_cg_iters 8, linearize mode; 2 gn_cg steps,
+             then 1 Bi-CG-STAB step. Per step: loss, |g|, λ, α, cg
+             iterations, wall, peak device memory and the kernels' launches
+             beside the flash launches derived from the code, which they
+             must equal. Every loss finite, each accepted step's loss at most
+             its starting loss, the last below the first. Launch counts are
+             zeroed just before and read just after.
+8. transformer profile — one gn_cg step of the slice under
+             ``torch.profiler``: wall, device-busy share, top kernels and the
+             flash kernels' share of device time.
+9. transformer checks — granite-3-8b's smoke config (GQA, kv 2) in f32: the
+             flash model against the ``_sdpa`` model on the card (loss,
+             gradient, GN and Hessian products within 1e-4), and one gn_cg
+             ``hf_step`` (λ 100, cg_tol 0) on the card against the CPU's
+             plain versions (parameters within 1e-4).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the repository
@@ -57,6 +87,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 on the tensor cores (dense)
 N_MAIN = 1_722_293          # parameters of the TIMIT MLP
 N_RAGGED = 65_537
 TOL = 1e-5
@@ -126,9 +157,9 @@ def time_warm(torch, fn, reps=100):
     return s.elapsed_time(e) / reps
 
 
-def bound_ms(n_bytes, n_flops):
+def bound_ms(n_bytes, n_flops, flops_per_s=F32_FLOPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / F32_FLOPS_PER_S * 1e3
+    t_ops = n_flops / flops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -246,6 +277,148 @@ def phase_kernels(torch, cg_fused, ref):
                 fail(f"{name} at n={n}: relative error {rel_err} > {TOL}")
             if n == N_MAIN:
                 records[name] = rec
+    del flush
+    torch.cuda.empty_cache()
+    return records
+
+
+# Flash-attention cases: (tag, B, S, H, KV, hd, causal, window, valid_len, bias).
+# "slice" is the transformer slice's gradient batch (Qwen1.5-0.5B's heads),
+# "curvature" its curvature batch; "gqa" is Qwen2-1.5B's attention; "ragged"
+# is S 130 padded to 256; "bias" has fully masked rows at the smoke head dim.
+FLASH_CASES = (
+    ("slice", 8, 512, 16, 16, 64, True, None, None, False),
+    ("curvature", 2, 512, 16, 16, 64, True, None, None, False),
+    ("gqa", 2, 512, 12, 2, 128, True, None, None, False),
+    ("ragged", 2, 256, 16, 16, 64, True, None, 130, False),
+    ("window", 2, 512, 16, 16, 64, True, 64, None, False),
+    ("bias", 2, 256, 4, 4, 32, False, None, None, True),
+)
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+FLASH_NAMES = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
+               "flash_attention_jvp")
+# multiply-adds x 2 per (query, key) pair that the mask lets through
+FLASH_FLOPS_PER_PAIR = {"flash_attention_fwd": 4, "flash_attention_dq": 6,
+                        "flash_attention_dkv": 8, "flash_attention_jvp": 10}
+
+
+def _flash_inputs(torch, case, dtype, gen):
+    from repro_torch.kernels import ref
+
+    tag, B, S, H, KV, hd, causal, window, valid_len, with_bias = case
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+    q, do, qt = rnd(B, S, H, hd), rnd(B, S, H, hd), rnd(B, S, H, hd)
+    k, v, kt, vt = (rnd(B, S, KV, hd) for _ in range(4))
+    kw = dict(causal=causal, window=window, valid_len=valid_len, bias=None)
+    mask = ref._ref_mask(S, S, causal=causal, window=window, valid_len=valid_len,
+                         device="cuda")
+    if with_bias:
+        bias = torch.zeros(1, S, S, device="cuda")
+        bias[0, 3] = ref.NEG_INF                     # fully masked rows
+        bias[0, S // 2] = ref.NEG_INF
+        bias[0, 10:40, 5:70] = ref.NEG_INF           # a masked patch
+        kw["bias"] = bias
+        mask = mask & (bias[0] > ref.NEG_INF / 2)
+    pairs = int(mask.sum()) * B * H
+    up = lambda t: t.float()
+    o, lse = ref.flash_attention_fwd_ref(up(q), up(k), up(v), **kw)
+    delta = (o * up(do)).sum(-1).transpose(1, 2).contiguous()
+    return dict(q=q, k=k, v=v, do=do, qt=qt, kt=kt, vt=vt, o=o, lse=lse, delta=delta,
+                kw=kw, pairs=pairs)
+
+
+def _flash_calls(torch, x):
+    """name: (kernel call, plain call given an upcast of the inputs, bytes the
+    function must move, library call or None)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa, ref
+
+    q, k, v, do, qt, kt, vt = (x[n] for n in ("q", "k", "v", "do", "qt", "kt", "vt"))
+    lse, delta, kw = x["lse"], x["delta"], x["kw"]
+    B, S, H, hd = q.shape
+    esz = q.element_size()
+    lib = (None, None)
+    if kw["bias"] is None and kw["window"] is None and kw["valid_len"] is None:
+        gqa = dict(enable_gqa=True) if H != k.shape[2] else {}
+        qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+        lib_fwd = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=kw["causal"],
+                                                         **gqa)
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (qs, ks, vs))
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=kw["causal"], **gqa)
+        dos = do.transpose(1, 2)
+        lib = (lib_fwd,
+               lambda: torch.autograd.grad(out, (qg, kg, vg), dos, retain_graph=True))
+    n_q, n_k = q.numel(), k.numel()
+    rows = B * H * S * 4
+    return {
+        "flash_attention_fwd": (
+            lambda: fa.flash_attention_fwd(q, k, v, **kw),
+            lambda up: ref.flash_attention_fwd_ref(up(q), up(k), up(v), **kw),
+            (n_q + 2 * n_k) * esz + n_q * esz + rows, lib[0]),
+        "flash_attention_dq": (
+            lambda: (fa.flash_attention_dq(q, k, v, do, lse, delta, **kw),),
+            lambda up: (ref.flash_attention_dq_ref(up(q), up(k), up(v), up(do), lse, delta,
+                                                   **kw),),
+            (2 * n_q + 2 * n_k) * esz + 2 * rows + n_q * esz, lib[1]),
+        "flash_attention_dkv": (
+            lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta, **kw),
+            lambda up: ref.flash_attention_dkv_ref(up(q), up(k), up(v), up(do), lse, delta,
+                                                   **kw),
+            (2 * n_q + 2 * n_k) * esz + 2 * rows + 2 * B * S * H * hd * 4, lib[1]),
+        "flash_attention_jvp": (
+            lambda: fa.flash_attention_jvp(q, k, v, qt, kt, vt, lse, **kw),
+            lambda up: ref.flash_attention_jvp_ref(up(q), up(k), up(v), up(qt), up(kt),
+                                                   up(vt), lse, **kw),
+            (2 * n_q + 4 * n_k) * esz + rows + n_q * 4 + rows, None),
+    }
+
+
+def _rel(got, want):
+    """max |got - want| / max |want| over the outputs, and the max |got - want|."""
+    rel = max(float((g.double() - w.double()).abs().max()) / max(float(w.abs().max()), 1e-30)
+              for g, w in zip(got, want))
+    return rel, max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+
+
+def phase_flash(torch, reps_cold=20, reps_warm=50):
+    """The four flash kernels against their plain versions on every case, f32
+    and bf16; returns the records of the slice's case in bf16, keyed by name."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    records = {}
+    for case in FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            x = _flash_inputs(torch, case, dtype, gen)
+            for name, (kern, plain_up, n_bytes, library) in _flash_calls(torch, x).items():
+                plain = lambda: plain_up(lambda t: t.float())
+                got, want = kern(), plain()
+                rel, abs_err = _rel(got, want)
+                rel64, _ = _rel(got, plain_up(lambda t: t.double()))
+                torch.cuda.synchronize()
+                flops = FLASH_FLOPS_PER_PAIR[name] * case[5] * x["pairs"]
+                rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+                b_ms, b_by = bound_ms(n_bytes, flops, rate)
+                rec = {
+                    "case": case[0], "dtype": dname,
+                    "shape": dict(zip(("B", "S", "H", "KV", "hd"), case[1:6])),
+                    "causal": case[6], "window": case[7], "valid_len": case[8],
+                    "bias": case[9], "rel_err": rel, "rel_err_f64": rel64,
+                    "max_abs_err": abs_err,
+                    "ms": time_cold(torch, kern, flush, reps_cold),
+                    "ms_l2_warm": time_warm(torch, kern, reps_warm),
+                    "plain_ms": time_cold(torch, plain, flush, 5),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": (None if library is None
+                                   else time_cold(torch, library, flush, reps_cold)),
+                }
+                print(f"[flash] {name}: {json.dumps(rec)}", flush=True)
+                if not (rel <= FLASH_TOL[dname] and rel64 <= FLASH_TOL[dname]):
+                    fail(f"{name} on {case[0]} {dname}: relative error {rel} (against "
+                         f"float64: {rel64}) > {FLASH_TOL[dname]}")
+                if case[0] == "slice" and dtype == torch.bfloat16:
+                    records[name] = rec
+            del x
     del flush
     torch.cuda.empty_cache()
     return records
@@ -477,6 +650,180 @@ def phase_profile(torch, model, params, state, batch, hvp_batch):
         f"{k} {w:.1f} ms (cg_iters {i})" for k, (w, i) in walls.items()), flush=True)
 
 
+# ------------------------------------------------- transformer slice --
+QWEN = "qwen1.5-0.5b"
+QWEN_PARAMS = 464_118_784
+SLICE_KW = dict(smoke=False, use_flash_attention=True, krylov_backend="flat", batch_size=8,
+                seq_len=512, hvp_batch_frac=0.25, max_cg_iters=8,
+                curvature_mode="linearize")
+
+
+def expected_flash_launches(solver, n_layers, K, E):
+    """Launches of the four flash kernels in one outer step, from the code:
+    the gradient runs forward, dQ and dK/dV once per layer; a gn_cg step's
+    linearize-mode GN build runs the forward and the Jᵀu graph (dQ, dK/dV),
+    then each of its 1 + K products (CG's initial residual and one per
+    iteration) runs J·v (JVP) and Jᵀ (dQ, dK/dV); each of the E line-search
+    trials runs the forward. Bi-CG-STAB's exact-Hessian products take the
+    chunked torch route and launch none."""
+    if solver == "gn_cg":
+        return {"flash_attention_fwd": n_layers * (2 + E),
+                "flash_attention_dq": n_layers * (3 + K),
+                "flash_attention_dkv": n_layers * (3 + K),
+                "flash_attention_jvp": n_layers * (1 + K)}
+    return {"flash_attention_fwd": n_layers * (1 + E), "flash_attention_dq": n_layers,
+            "flash_attention_dkv": n_layers, "flash_attention_jvp": 0}
+
+
+def phase_transformer(torch, ops):
+    """The transformer slice: Qwen1.5-0.5B at full width and depth (bf16),
+    flash attention, flat backend, 2 gn_cg steps then 1 Bi-CG-STAB step
+    through ``repro_torch.launch.train.train``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from torch.utils._pytree import tree_leaves
+
+    cfg = get_config(QWEN)
+    if cfg.param_count() != QWEN_PARAMS:
+        fail(f"{QWEN}: param_count {cfg.param_count()} != {QWEN_PARAMS}")
+    print(f"[transformer] {QWEN}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads} (kv {cfg.n_kv_heads}), d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}, "
+          f"{cfg.dtype}; flash attention, flat backend, batch 8 x 512, curvature batch "
+          f"2 x 512, max_cg_iters 8, linearize", flush=True)
+    log = lambda line: print(f"[transformer] {line}", flush=True)
+    ops.reset_launches()
+    params, state, hist = train(QWEN, solver="gn_cg", steps=2, log_fn=log, **SLICE_KW)
+    params, state, h2 = train(QWEN, solver="bicgstab", steps=3, start=2, params=params,
+                              state=state, log_fn=log, **SLICE_KW)
+    launches = dict(ops.LAUNCHES)
+    hist = [dict(h, solver="gn_cg") for h in hist] + [dict(h, solver="bicgstab") for h in h2]
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"[transformer] parameters {n_params} (param_count {cfg.param_count()})", flush=True)
+    if n_params != QWEN_PARAMS:
+        fail(f"{QWEN} has {n_params} parameters, expected {QWEN_PARAMS}")
+    for h in hist:
+        K, E = int(h["cg_iters"]), int(h["ls_evals"])
+        want = expected_flash_launches(h["solver"], cfg.n_layers, K, E)
+        got = {k: h["launches"][k] for k in want}
+        print(f"[transformer] {h['solver']} step {h['step']}: loss {h['loss']:.6f} -> "
+              f"{h['loss_new']:.6f}  |g| {h['grad_norm']:.4f}  lambda {h['lambda']:.4g}  "
+              f"alpha {h['alpha']:.4g}  cg_iters {K}  ls_evals {E}  wall {h['wall_s']:.3f} s  "
+              f"max_memory_allocated {h['max_memory_allocated'] / 2**30:.2f} GiB", flush=True)
+        print(f"[transformer]   launches {h['launches']}  flash launches from the code "
+              f"{want}", flush=True)
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["loss_new"])):
+            fail(f"step {h['step']}: non-finite loss {h['loss']} -> {h['loss_new']}")
+        if h["alpha"] > 0 and not h["loss_new"] <= h["loss"]:
+            fail(f"step {h['step']}: accepted step raised the loss "
+                 f"({h['loss']} -> {h['loss_new']})")
+        if got != want:
+            fail(f"step {h['step']}: flash launches {got} differ from the code's {want}")
+    if not hist[-1]["loss_new"] < hist[0]["loss"]:
+        fail(f"the loss did not fall: {hist[0]['loss']} -> {hist[-1]['loss_new']}")
+    if not _finite_params(torch, tree_leaves, params):
+        fail("non-finite parameters after the transformer slice")
+    print(f"[transformer] launches {launches}", flush=True)
+    for name in FLASH_NAMES + ("dot2", "residual_dots", "x_update"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the transformer slice")
+    return params, state, launches
+
+
+def phase_transformer_checks(torch):
+    """granite-3-8b's smoke config (GQA, kv 2) in f32: the flash model against
+    the _sdpa model on the card (loss, gradient, GN and Hessian products), and
+    one hf_step on the card against the CPU's plain versions."""
+    from torch.func import grad_and_value
+    from torch.utils._pytree import tree_leaves, tree_map
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.curvature import make_gnvp_op, make_hvp_op
+    from repro_torch.core.hf import HFConfig, hf_init, hf_step
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.models.transformer import build_model
+
+    cfg = get_smoke_config("granite-3-8b")
+    plain = build_model(cfg, device="cuda")
+    flash = build_model(cfg.replace(use_flash_attention=True), device="cuda")
+    params = plain.init(torch.Generator().manual_seed(0))
+    batch = lm_batch(torch.Generator().manual_seed(1), cfg, 2, 256, device="cuda")
+    tan = tree_map(lambda p: torch.sin(torch.arange(p.numel(), device="cuda",
+                                                    dtype=torch.float32)).reshape(p.shape),
+                   params)
+    out = {}
+    for tag, m in (("sdpa", plain), ("flash", flash)):
+        g, f = grad_and_value(m.loss_fn)(params, batch)
+        out[tag] = dict(
+            loss=f, grad=g,
+            gnvp=make_gnvp_op(m.logits_fn, m.out_loss_fn, params, batch)(tan),
+            hvp=make_hvp_op(m.loss_fn, params, batch)(tan))
+    worst = {k: (_worst_rel(torch, tree_leaves, out["flash"][k], out["sdpa"][k])
+                 if k != "loss" else abs(float(out["flash"][k] - out["sdpa"][k])))
+             for k in ("loss", "grad", "gnvp", "hvp")}
+    print(f"[transformer-check] granite-3-8b smoke (d 128, 4 heads, kv 2, hd 32), f32, "
+          f"2 x 256: flash against _sdpa on the card: loss |diff| {worst['loss']:.3e}, "
+          f"worst relative diff: gradient {worst['grad']:.3e}, GN product "
+          f"{worst['gnvp']:.3e}, Hessian product {worst['hvp']:.3e}", flush=True)
+    if not max(worst.values()) <= 1e-4:
+        fail(f"flash and _sdpa models differ: {worst}")
+
+    hcfg = HFConfig(solver="gn_cg", krylov_backend="flat", init_damping=100.0, cg_tol=0.0,
+                    max_cg_iters=4)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        m = build_model(cfg.replace(use_flash_attention=True), device=dev)
+        p = params_from_numpy(params_to_numpy(params), dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        res[dev] = hf_step(m.loss_fn, p, hf_init(p, hcfg, device=dev), b, b, hcfg,
+                           model_out_fn=m.logits_fn, out_loss_fn=m.out_loss_fn, device=dev)
+    worst = _worst_rel(torch, tree_leaves, [t.cpu() for t in tree_leaves(res["cuda"][0])],
+                        tree_leaves(res["cpu"][0]))
+    print(f"[transformer-check] one gn_cg hf_step (lambda 100, cg_tol 0, flat backend, flash) "
+          f"card against CPU: loss_new {float(res['cuda'][2]['loss_new']):.7f} vs "
+          f"{float(res['cpu'][2]['loss_new']):.7f}, cg_iters "
+          f"{int(res['cuda'][2]['cg_iters'])} vs {int(res['cpu'][2]['cg_iters'])}, worst "
+          f"parameter relative diff {worst:.3e}", flush=True)
+    if not worst <= 1e-4:
+        fail(f"card and CPU hf_steps differ by {worst} > 1e-4")
+
+
+def phase_transformer_profile(torch, params, state):
+    """One gn_cg step of the slice under torch.profiler: its wall, the
+    device-busy share, the top kernels and the flash kernels' share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.train import train
+
+    def step():
+        return train(QWEN, solver="gn_cg", steps=3, start=2, params=params, state=state,
+                     log_fn=lambda line: None, **SLICE_KW)[2][0]
+
+    plain = step()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_h = step()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    flash = [e for e in kern if "fa_" in e.key and "_kernel" in e.key]
+    flash_ms = sum(e.self_device_time_total for e in flash) / 1e3
+    wall, prof_wall = plain["wall_s"] * 1e3, prof_h["wall_s"] * 1e3
+    print(f"[transformer-profile] gn_cg step (cg_iters {int(plain['cg_iters'])}, ls_evals "
+          f"{int(plain['ls_evals'])}): wall {wall:.1f} ms unprofiled, {prof_wall:.1f} ms "
+          f"profiled; device busy {busy:.2f} ms = {100 * busy / wall:.2f}% of the unprofiled "
+          f"wall ({100 * busy / prof_wall:.2f}% of the profiled); flash kernels "
+          f"{flash_ms:.2f} ms = {100 * flash_ms / max(busy, 1e-9):.2f}% of device time",
+          flush=True)
+    if busy <= 0:
+        fail("the profiler saw no device time in the transformer step")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"[transformer-profile] {e.self_device_time_total / 1e3:9.3f} ms  "
+              f"x{e.count:<6d} {e.key[:90]}", flush=True)
+    for e in flash:
+        print(f"[transformer-profile] flash kernel {e.key[:60]}: "
+              f"{e.self_device_time_total / 1e3:.3f} ms in {e.count} launches", flush=True)
+
+
 def count_host_reads(torch, fn):
     """Synchronizing CUDA calls made by ``fn()``, counted with the sync debug
     mode's warnings (each host read of a device value is one)."""
@@ -571,27 +918,42 @@ def main() -> None:
 
     records = phase_kernels(torch, cg_fused, ref)
     records["dots_block"] = phase_gram(torch, cg_fused, ref)
+    records.update(phase_flash(torch))
     model, params, state, batch, hvp_batch, launches = phase_slice(torch, ops)
     launches["dots_block"] = phase_sstep(torch, ops, model, batch, hvp_batch)["dots_block"]
     phase_checks(torch, model, params, state, batch, hvp_batch)
     phase_profile(torch, model, params, state, batch, hvp_batch)
     phase_profile_sstep(torch, model, batch, hvp_batch)
+    del model, params, state, batch, hvp_batch
+    qparams, qstate, t_launches = phase_transformer(torch, ops)
+    launches.update({name: t_launches[name] for name in FLASH_NAMES})
+    phase_transformer_profile(torch, qparams, qstate)
+    del qparams, qstate
+    torch.cuda.empty_cache()
+    phase_transformer_checks(torch)
 
-    replaces = {"dot2": 146, "x_update": 42, "residual_dots": 71, "dots_block": 114}
+    replaces = {
+        "dot2": "cg_fused.py:146", "x_update": "cg_fused.py:42",
+        "residual_dots": "cg_fused.py:71", "dots_block": "cg_fused.py:114",
+        "flash_attention_fwd": "flash_attention.py:310",
+        "flash_attention_dq": "flash_attention.py:363",
+        "flash_attention_dkv": "flash_attention.py:397",
+        "flash_attention_jvp": "flash_attention.py:443",
+    }
     kernels = [{
         "name": name, "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/cg_fused.cu",
-        "replaces": f"src/repro/kernels/cg_fused.py:{replaces[name]}",
+        "source": ("src/repro_torch/kernels/csrc/flash_attention.cu" if name in FLASH_NAMES
+                   else "src/repro_torch/kernels/csrc/cg_fused.cu"),
+        "replaces": f"src/repro/kernels/{replaces[name]}",
         "launches": launches[name], "max_abs_err": rec["max_abs_err"],
         "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
     } for name, rec in records.items()]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    # The script drives cuda:0 only: one card, whatever the machine holds.
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}),
-        flush=True)
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
 
 
 if __name__ == "__main__":

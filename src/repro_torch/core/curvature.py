@@ -19,9 +19,19 @@ and Gauss-Newton vector products in three modes.
   primal at a time, so memory is flat in the batch; without it the chunked
   loss's graph is cached as in "linearize".
 
-``grad_reduce`` is applied once per product. Flash attention's
-``second_order_tangents`` context has no counterpart here: the MLP slice
-has no attention.
+``grad_reduce`` is applied once per product.
+
+**Flash attention.** Every exact-Hessian build runs under
+``kernels.flash_ad.second_order_tangents()``, as in the reference: the flash
+Functions' backward is linear in dO with detached residuals (exact for the
+GN product, blind to the second-order terms of attention), so under the
+context the model routes attention to the chunked torch form, which
+autograd differentiates twice. The cached modes enter the context once, for
+the primal build; the naive and remat'd chunked products recompute the
+primal in every call and enter it there. The GN operator captures the
+context's state at build time and re-enters it in those per-call bodies
+(``core.hf`` builds it under the context for the s-step solvers). For a
+model without flash attention the context changes nothing.
 
 **Block products.** Every operator built here also carries ``op.block``:
 the same operator applied to a stacked tree of s tangents (a leading s axis
@@ -37,12 +47,15 @@ once per block.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Optional
 
 import torch
 import torch.utils.checkpoint
 from torch.func import grad, jvp, vjp, vmap
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+
+from ..kernels.flash_ad import second_order_active, second_order_tangents
 
 LossFn = Callable[[Any, Any], torch.Tensor]
 OutFn = Callable[[Any, Any], Any]
@@ -197,8 +210,10 @@ def _chunked_product(direct, params, batch, chunk_size, grad_reduce) -> Op:
 
 
 def _hvp_direct(loss_fn, params, vc, batch):
-    """One H·v with the primal recomputed in-call (forward-over-reverse)."""
-    return jvp(grad(lambda p: loss_fn(p, batch)), (params,), (vc,))[1]
+    """One H·v with the primal recomputed in-call (forward-over-reverse),
+    under ``second_order_tangents()``."""
+    with second_order_tangents():
+        return jvp(grad(lambda p: loss_fn(p, batch)), (params,), (vc,))[1]
 
 
 def make_hvp_op(
@@ -229,7 +244,8 @@ def make_hvp_op(
         scalar = chunked_scalar_fn(loss_fn, batch, chunk_size, remat=False)
     else:
         scalar = lambda p: loss_fn(p, batch)
-    _, _, lin = _cached_hessian(scalar, params)
+    with second_order_tangents():
+        _, _, lin = _cached_hessian(scalar, params)
     return _lift_cached(lin, params, grad_reduce)
 
 
@@ -242,7 +258,10 @@ def shared_primal_hvp(
 ):
     """One primal pass for the whole outer step: (f0, g, hvp_op). The cached
     gradient graph gives f0 and g, and every H·v is a backward through it."""
-    f0, g, lin = _cached_hessian(lambda p: loss_fn(p, batch), params)
+    # The fused gradient comes through the second-order route too (the price
+    # of one primal pass for g and the Hessian, as in the reference).
+    with second_order_tangents():
+        f0, g, lin = _cached_hessian(lambda p: loss_fn(p, batch), params)
     return f0, _maybe_reduce(g, grad_reduce), _lift_cached(lin, params, grad_reduce)
 
 
@@ -309,10 +328,17 @@ def make_gnvp_op(
     """Gauss-Newton operator Jᵀ(∇²_z ℓ)J. Same modes as ``make_hvp_op``; the
     chunked path sums per-microbatch GN products (J is block-diagonal over
     examples) with each chunk's primal recomputed in-call, so its memory is
-    flat with or without ``remat``."""
+    flat with or without ``remat``. The ``second_order_tangents()`` state at
+    build time is re-entered around every in-call primal."""
     _check_mode(mode)
+    ctx = second_order_tangents if second_order_active() else contextlib.nullcontext
+
+    def in_call(vc, c):
+        with ctx():
+            return _gnvp_direct(model_out_fn, out_loss_fn, params, vc, c)
+
     if mode == "naive":
-        direct = lambda vc: _gnvp_direct(model_out_fn, out_loss_fn, params, vc, batch)
+        direct = lambda vc: in_call(vc, batch)
         return _with_block(
             _reduced(lambda v: direct(_cast_like(v, params)), grad_reduce),
             _reduced(lambda V: vmap(direct)(_cast_like(V, params)), grad_reduce))
@@ -322,9 +348,7 @@ def make_gnvp_op(
         return _lift_cached(_gnvp_once(model_out_fn, out_loss_fn, params, batch),
                             params, grad_reduce)
 
-    return _chunked_product(
-        lambda vc, c: _gnvp_direct(model_out_fn, out_loss_fn, params, vc, c),
-        params, batch, chunk_size, grad_reduce)
+    return _chunked_product(in_call, params, batch, chunk_size, grad_reduce)
 
 
 def make_damped(op: Op, lam) -> Op:

@@ -17,9 +17,14 @@ reduction per cycle of s iterations, in the ``sstep_basis`` polynomial
 basis, the chains paired into block products of the same cached operator);
 ``overlap=True`` double-buffers their cycles and pairs the line-search
 trials. The reference's telemetry hooks have no counterpart yet.
+
+For a model with flash attention, the gradient and the line search run the
+flash kernels; the curvature engine routes exact-Hessian builds, and this
+step the s-step GN build, through ``kernels.flash_ad.second_order_tangents``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, NamedTuple, Optional
 
@@ -29,6 +34,7 @@ from torch.utils._pytree import tree_leaves, tree_map
 
 from . import damping as damping_mod
 from .._device import check_on, resolve_device
+from ..kernels.flash_ad import second_order_tangents
 from .curvature import (
     MODES as CURVATURE_MODES,
     make_damped,
@@ -203,7 +209,13 @@ def hf_step(
         if not use_gn:
             exact = make_hvp_op(loss_fn, params, hvp_batch, **curv_kw)
     if use_gn:
-        G = make_gnvp_op(model_out_fn, out_loss_fn, params, hvp_batch, **curv_kw)
+        # The s-step solvers take batched block products of the operator,
+        # which have no rule through the flash Functions: build the GN
+        # operator under the chunked torch route of attention (the same
+        # math; a no-op for a model without flash attention).
+        gn_ctx = second_order_tangents if config.sstep_s > 1 else contextlib.nullcontext
+        with gn_ctx():
+            G = make_gnvp_op(model_out_fn, out_loss_fn, params, hvp_batch, **curv_kw)
     else:
         G = exact
     if not shared and grad_reduce is not None and config.overlap:

@@ -1,9 +1,14 @@
 """Carries weights and batches between numpy (e.g. the JAX package's arrays)
 and the port's trees.
 
-Dicts are rebuilt in sorted-key order, which is the order ``jax.tree_util``
-flattens them in; ``torch.utils._pytree`` keeps insertion order, so the
-port's trees then flatten leaf for leaf like the reference's.
+Dicts are rebuilt in sorted-key order at every level of nesting, which is
+the order ``jax.tree_util`` flattens them in; ``torch.utils._pytree`` keeps
+insertion order, so the port's trees then flatten leaf for leaf like the
+reference's (the transformer's stacked ``blocks`` dict included).
+
+bfloat16 arrays (numpy's ``ml_dtypes.bfloat16``, what the JAX package's
+bf16 weights become) cross bit for bit through a 16-bit integer view, since
+``torch.tensor`` does not take that numpy dtype.
 """
 from __future__ import annotations
 
@@ -16,9 +21,21 @@ from ._device import resolve_device
 
 def _to_tensor(x, dev):
     a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(dev)
     if np.issubdtype(a.dtype, np.integer):
         a = a.astype(np.int64)
     return torch.tensor(a, device=dev)
+
+
+def _to_numpy(t):
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # numpy's bfloat16 type; only needed for bf16 leaves
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
 
 
 def _convert(tree, dev):
@@ -42,5 +59,6 @@ def batch_from_numpy(batch, device="cuda"):
 
 
 def params_to_numpy(tree):
-    """The port's tree → the same tree of numpy arrays."""
-    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    """The port's tree → the same tree of numpy arrays (bf16 leaves as
+    ``ml_dtypes.bfloat16``)."""
+    return tree_map(_to_numpy, tree)

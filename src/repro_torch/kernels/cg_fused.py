@@ -1,10 +1,13 @@
-"""Builds and launches the fused Krylov CUDA kernels (``csrc/cg_fused.cu``).
+"""Builds the port's CUDA extension and launches the fused Krylov kernels
+(``csrc/cg_fused.cu``).
 
 Twins of the Pallas kernels in ``repro/kernels/cg_fused.py`` (``dot2``,
-``x_update``, ``residual_dots``, ``dots_block``). The extension is compiled for ``sm_90a``
-with ``torch.utils.cpp_extension.load`` at first use, into ``_build/`` beside
-this file (listed in ``.gitignore``); nothing is built when the module is
-imported. Every wrapper checks device, dtype, shape and contiguity and
+``x_update``, ``residual_dots``, ``dots_block``). The one extension holds
+every kernel of the port (the flash-attention passes of
+``csrc/flash_attention.cu`` too, launched by ``kernels.flash_attention``). It
+is compiled for ``sm_90a`` with ``torch.utils.cpp_extension.load`` at first
+use, into ``_build/`` beside this file (listed in ``.gitignore``); nothing is
+built when the module is imported. Every wrapper checks device, dtype, shape and contiguity and
 raises on anything else; it never falls back to the plain version.
 """
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = (_CSRC / "cg_fused_bind.cpp", _CSRC / "cg_fused.cu")
+SOURCES = (_CSRC / "cg_fused_bind.cpp", _CSRC / "cg_fused.cu", _CSRC / "flash_attention.cu")
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17")
 
 GRAM_MAX_ROWS = 32  # most rows of U and of V that ``dots_block`` takes (csrc)

@@ -1,9 +1,11 @@
-// PyTorch binding of the fused Krylov kernels in cg_fused.cu.
+// PyTorch binding of the port's kernels: the fused Krylov recurrences in
+// cg_fused.cu and the flash-attention passes in flash_attention.cu.
 //
 // The only file that includes torch/extension.h (the kernels themselves are
 // plain CUDA C, so nvcc compiles them quickly). Each function checks its
 // tensors, allocates outputs and scratch, launches on the current stream and
-// checks every launch with C10_CUDA_KERNEL_LAUNCH_CHECK().
+// checks every launch (C10_CUDA_KERNEL_LAUNCH_CHECK() for the Krylov
+// kernels; the flash launchers return cudaGetLastError(), raised here).
 
 #include <torch/extension.h>
 
@@ -11,6 +13,8 @@
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
 #include <cuda_runtime.h>
+
+#include "flash_attention.h"
 
 extern "C" {
 int cg_reduce_blocks(int64_t n);
@@ -145,10 +149,164 @@ at::Tensor dots_block(const at::Tensor& U, const at::Tensor& V) {
   return out;
 }
 
+// ------------------------------------------------------ flash attention --
+namespace {
+
+void check_attn(const at::Tensor& t, const char* name, const at::Tensor& q) {
+  TORCH_CHECK(t.is_cuda() && t.device() == q.device(), name, " must be a CUDA tensor on ",
+              q.device());
+  TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
+  TORCH_CHECK(t.dim() == 4 && t.size(3) == q.size(3), name, " must be 4-D with head dim ",
+              q.size(3));
+  TORCH_CHECK(t.scalar_type() == q.scalar_type(), name, " must have q's dtype");
+}
+
+void check_f32(const at::Tensor& t, const char* name, const at::Tensor& q,
+               at::IntArrayRef shape) {
+  TORCH_CHECK(t.is_cuda() && t.device() == q.device(), name, " must be a CUDA tensor on ",
+              q.device());
+  TORCH_CHECK(t.is_contiguous() && t.scalar_type() == at::kFloat, name,
+              " must be contiguous float32");
+  TORCH_CHECK(t.sizes() == shape, name, " must have shape ", shape);
+}
+
+// Arguments shared by every pass; ``bias`` is empty for none, ``window`` and
+// ``valid_len`` negative for none.
+FaArgs fa_args(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+               const at::Tensor& bias, bool causal, int64_t window, int64_t valid_len,
+               double scale) {
+  check_attn(q, "q", q);
+  check_attn(k, "k", q);
+  check_attn(v, "v", q);
+  TORCH_CHECK(q.scalar_type() == at::kFloat || q.scalar_type() == at::kBFloat16,
+              "q, k, v must be float32 or bfloat16");
+  TORCH_CHECK(k.sizes() == v.sizes() && k.size(0) == q.size(0), "k and v must be (B, Sk, KV, hd)");
+  TORCH_CHECK(q.size(2) % k.size(2) == 0, "heads must be a multiple of kv heads");
+  FaArgs a{};
+  a.q = q.data_ptr();
+  a.k = k.data_ptr();
+  a.v = v.data_ptr();
+  a.B = (int)q.size(0);
+  a.Sq = (int)q.size(1);
+  a.H = (int)q.size(2);
+  a.hd = (int)q.size(3);
+  a.Sk = (int)k.size(1);
+  a.KV = (int)k.size(2);
+  a.dtype = q.scalar_type() == at::kFloat ? 0 : 1;
+  a.scale = (float)scale;
+  a.causal = causal ? 1 : 0;
+  a.has_window = window >= 0 ? 1 : 0;
+  a.window = (int)(window >= 0 ? window : 0);
+  a.valid_len = (int)(valid_len >= 0 ? valid_len : -1);
+  if (bias.numel() > 0) {
+    TORCH_CHECK(bias.dim() == 3 && (bias.size(0) == 1 || bias.size(0) == q.size(0)),
+                "bias must be (B|1, Sq, Sk)");
+    check_f32(bias, "bias", q, {bias.size(0), q.size(1), k.size(1)});
+    a.bias = bias.data_ptr<float>();
+    a.bias_b = (int)bias.size(0);
+  }
+  return a;
+}
+
+void fa_check(int err, const char* what) {
+  TORCH_CHECK(err == 0, what, ": launch failed: ", cudaGetErrorString((cudaError_t)err));
+}
+
+}  // namespace
+
+// (o, lse) of the forward pass.
+std::vector<at::Tensor> flash_fwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+                                  const at::Tensor& bias, bool causal, int64_t window,
+                                  int64_t valid_len, double scale) {
+  FaArgs a = fa_args(q, k, v, bias, causal, window, valid_len, scale);
+  c10::cuda::CUDAGuard guard(q.device());
+  auto o = at::empty_like(q);
+  auto lse = at::empty({q.size(0), q.size(2), q.size(1)}, q.options().dtype(at::kFloat));
+  a.o = o.data_ptr();
+  a.lse_out = lse.data_ptr<float>();
+  fa_check(fa_forward(&a, c10::cuda::getCurrentCUDAStream().stream()), "flash_attention_fwd");
+  return {o, lse};
+}
+
+// dq of the backward pass (in q's dtype).
+at::Tensor flash_dq(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+                    const at::Tensor& dout, const at::Tensor& lse, const at::Tensor& delta,
+                    const at::Tensor& bias, bool causal, int64_t window, int64_t valid_len,
+                    double scale) {
+  FaArgs a = fa_args(q, k, v, bias, causal, window, valid_len, scale);
+  check_attn(dout, "do", q);
+  TORCH_CHECK(dout.sizes() == q.sizes(), "do must have q's shape");
+  check_f32(lse, "lse", q, {q.size(0), q.size(2), q.size(1)});
+  check_f32(delta, "delta", q, {q.size(0), q.size(2), q.size(1)});
+  c10::cuda::CUDAGuard guard(q.device());
+  auto dq = at::empty_like(q);
+  a.dout = dout.data_ptr();
+  a.lse = lse.data_ptr<float>();
+  a.delta = delta.data_ptr<float>();
+  a.o = dq.data_ptr();
+  fa_check(fa_dq(&a, c10::cuda::getCurrentCUDAStream().stream()), "flash_attention_dq");
+  return dq;
+}
+
+// Per-q-head (dk_h, dv_h), each (B, Sk, H, hd) float32.
+std::vector<at::Tensor> flash_dkv(const at::Tensor& q, const at::Tensor& k,
+                                  const at::Tensor& v, const at::Tensor& dout,
+                                  const at::Tensor& lse, const at::Tensor& delta,
+                                  const at::Tensor& bias, bool causal, int64_t window,
+                                  int64_t valid_len, double scale) {
+  FaArgs a = fa_args(q, k, v, bias, causal, window, valid_len, scale);
+  check_attn(dout, "do", q);
+  TORCH_CHECK(dout.sizes() == q.sizes(), "do must have q's shape");
+  check_f32(lse, "lse", q, {q.size(0), q.size(2), q.size(1)});
+  check_f32(delta, "delta", q, {q.size(0), q.size(2), q.size(1)});
+  c10::cuda::CUDAGuard guard(q.device());
+  auto opts = q.options().dtype(at::kFloat);
+  auto dk = at::empty({q.size(0), k.size(1), q.size(2), q.size(3)}, opts);
+  auto dv = at::empty({q.size(0), k.size(1), q.size(2), q.size(3)}, opts);
+  a.dout = dout.data_ptr();
+  a.lse = lse.data_ptr<float>();
+  a.delta = delta.data_ptr<float>();
+  a.dk = dk.data_ptr<float>();
+  a.dv = dv.data_ptr<float>();
+  fa_check(fa_dkv(&a, c10::cuda::getCurrentCUDAStream().stream()), "flash_attention_dkv");
+  return {dk, dv};
+}
+
+// (g (B, Sq, H, hd), t (B, H, Sq)) of the tangent pass, both float32.
+std::vector<at::Tensor> flash_jvp(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+                                  const at::Tensor& qt, const at::Tensor& kt,
+                                  const at::Tensor& vt, const at::Tensor& lse,
+                                  const at::Tensor& bias, bool causal, int64_t window,
+                                  int64_t valid_len, double scale) {
+  FaArgs a = fa_args(q, k, v, bias, causal, window, valid_len, scale);
+  check_attn(qt, "qt", q);
+  check_attn(kt, "kt", q);
+  check_attn(vt, "vt", q);
+  TORCH_CHECK(qt.sizes() == q.sizes() && kt.sizes() == k.sizes() && vt.sizes() == v.sizes(),
+              "tangents must have their primals' shapes");
+  check_f32(lse, "lse", q, {q.size(0), q.size(2), q.size(1)});
+  c10::cuda::CUDAGuard guard(q.device());
+  auto opts = q.options().dtype(at::kFloat);
+  auto g = at::empty(q.sizes(), opts);
+  auto t = at::empty({q.size(0), q.size(2), q.size(1)}, opts);
+  a.qt = qt.data_ptr();
+  a.kt = kt.data_ptr();
+  a.vt = vt.data_ptr();
+  a.lse = lse.data_ptr<float>();
+  a.g = g.data_ptr<float>();
+  a.t = t.data_ptr<float>();
+  fa_check(fa_jvp(&a, c10::cuda::getCurrentCUDAStream().stream()), "flash_attention_jvp");
+  return {g, t};
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("dot2", &dot2, "(<u,v>, <v,v>) of flat f32 CUDA vectors");
   m.def("x_update", &x_update, "x + alpha*p + gamma*s of flat f32 CUDA vectors");
   m.def("residual_dots", &residual_dots, "r = s - gamma*As with <r,r0s> and <r,r>");
   m.def("dots_block", &dots_block, "Gram matrix U V^T of two stacked f32 CUDA blocks");
   m.def("gram_max_rows", &cg_gram_max_rows, "most rows of U and of V dots_block takes");
+  m.def("flash_fwd", &flash_fwd, "flash attention forward: (o, lse)");
+  m.def("flash_dq", &flash_dq, "flash attention backward: dq");
+  m.def("flash_dkv", &flash_dkv, "flash attention backward: per-q-head (dk, dv)");
+  m.def("flash_jvp", &flash_jvp, "flash attention tangent pass: (g, t)");
 }

@@ -1,9 +1,13 @@
-"""Dispatch for the flat Krylov backend's fused recurrences (twin of
-``repro/kernels/ops.py`` ``bicgstab_x_update``, ``bicgstab_residual_dots``,
-``dot2`` and ``gram_block``).
+"""Dispatch for the port's kernels (twin of ``repro/kernels/ops.py``): the
+flat Krylov backend's fused recurrences (``bicgstab_x_update``,
+``bicgstab_residual_dots``, ``dot2``, ``gram_block``) and the raw
+flash-attention passes (``flash_attention_fwd``, ``flash_attention_dq``,
+``flash_attention_dkv``, ``flash_attention_jvp``; the differentiable entry
+point is ``kernels.flash_ad.flash_mha``).
 
-A CUDA tensor goes to the hand-written kernel (``kernels.cg_fused``); a CPU
-tensor goes to the plain version (``kernels.ref``); anything else raises.
+A CUDA tensor goes to the hand-written kernel (``kernels.cg_fused``,
+``kernels.flash_attention``); a CPU tensor goes to the plain version
+(``kernels.ref``); anything else raises.
 There is no fallback from a failed build or launch to the plain version.
 
 ``LAUNCHES`` counts, per kernel, the calls that launched it; ``chip_smoke.py``
@@ -15,8 +19,11 @@ from __future__ import annotations
 import torch
 
 from . import cg_fused, ref
+from . import flash_attention as fa
 
-LAUNCHES = {"dot2": 0, "x_update": 0, "residual_dots": 0, "dots_block": 0}
+LAUNCHES = {"dot2": 0, "x_update": 0, "residual_dots": 0, "dots_block": 0,
+            "flash_attention_fwd": 0, "flash_attention_dq": 0,
+            "flash_attention_dkv": 0, "flash_attention_jvp": 0}
 
 
 def reset_launches() -> None:
@@ -85,3 +92,43 @@ def gram_tiles(U, V, kernel, rows: int = cg_fused.GRAM_MAX_ROWS):
         torch.cat([kernel(U[i:i + rows], V[j:j + rows])
                    for j in range(0, V.shape[0], rows)], dim=1)
         for i in range(0, U.shape[0], rows)], dim=0)
+
+
+# ------------------------------------------------------ flash attention --
+# Each takes causal, window, valid_len, scale and the optional (B|1, Sq, Sk)
+# f32 bias as keywords, as ``repro.kernels.flash_attention`` does.
+
+def flash_attention_fwd(q, k, v, **kw):
+    """(o (B, Sq, H, hd) in q's dtype, lse (B, H, Sq) f32)."""
+    if _route(q) == "cpu":
+        return ref.flash_attention_fwd_ref(q, k, v, **kw)
+    out = fa.flash_attention_fwd(q, k, v, **kw)
+    LAUNCHES["flash_attention_fwd"] += 1
+    return out
+
+
+def flash_attention_dq(q, k, v, do, lse, delta, **kw):
+    """dq (B, Sq, H, hd) in q's dtype; Δ = rowsum(dO∘O) as (B, H, Sq)."""
+    if _route(q) == "cpu":
+        return ref.flash_attention_dq_ref(q, k, v, do, lse, delta, **kw)
+    out = fa.flash_attention_dq(q, k, v, do, lse, delta, **kw)
+    LAUNCHES["flash_attention_dq"] += 1
+    return out
+
+
+def flash_attention_dkv(q, k, v, do, lse, delta, **kw):
+    """Per-q-head (dk_h, dv_h), each (B, Sk, H, hd) f32."""
+    if _route(q) == "cpu":
+        return ref.flash_attention_dkv_ref(q, k, v, do, lse, delta, **kw)
+    out = fa.flash_attention_dkv(q, k, v, do, lse, delta, **kw)
+    LAUNCHES["flash_attention_dkv"] += 1
+    return out
+
+
+def flash_attention_jvp(q, k, v, qt, kt, vt, lse, **kw):
+    """(g (B, Sq, H, hd) f32, t (B, H, Sq) f32) of the tangent pass."""
+    if _route(q) == "cpu":
+        return ref.flash_attention_jvp_ref(q, k, v, qt, kt, vt, lse, **kw)
+    out = fa.flash_attention_jvp(q, k, v, qt, kt, vt, lse, **kw)
+    LAUNCHES["flash_attention_jvp"] += 1
+    return out

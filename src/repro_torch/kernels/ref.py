@@ -1,11 +1,20 @@
-"""Plain PyTorch versions of the fused Krylov kernels (twins of
-``repro/kernels/ref.py`` ``bicgstab_x_update_ref``, ``bicgstab_residual_dots_ref``
-``dot2_ref`` and, for ``ops.gram_block``, ``gram_block_ref``).
+"""Plain PyTorch versions of the port's kernels (twins of
+``repro/kernels/ref.py``): the fused Krylov recurrences
+(``bicgstab_x_update_ref``, ``bicgstab_residual_dots_ref``, ``dot2_ref`` and,
+for ``ops.gram_block``, ``gram_block_ref``) and the four flash-attention
+passes, each with its kernel's own outputs.
 
 ``kernels.ops`` runs these for tensors on the CPU; ``chip_smoke.py`` holds
 each CUDA kernel against them on the card. Sums are ``torch.sum`` of the
 products, not ``torch.dot``: on the CPU ``torch.dot`` accumulates in f32 in
 one sequence (4e-5 relative error at n = 200k), ``torch.sum`` pairwise.
+
+The attention versions keep the reference's layout at every function: q
+(B, Sq, H, hd), k/v (B, Sk, KV, hd), lse and Δ (B, H, Sq), the optional
+additive bias (B|1, Sq, Sk) f32. They compute in f32 from the inputs as
+given (in float64 from float64 inputs, for an exact yardstick) and return
+the kernels' output types. Their mask is their own copy
+(``_ref_mask``), independent of ``flash_ad.position_mask``.
 """
 from __future__ import annotations
 
@@ -42,3 +51,135 @@ def gram_block_ref(U, V):
     for c in range(0, Uf.shape[1], BLOCK_GRAM):
         out = out + Uf[:, c:c + BLOCK_GRAM] @ Vf[:, c:c + BLOCK_GRAM].T
     return out
+
+
+# ----------------------------------------------------------- attention --
+NEG_INF = -1e30
+
+
+def _ref_mask(S, T, *, causal, window, valid_len, device):
+    qi = torch.arange(S, device=device)[:, None]
+    kj = torch.arange(T, device=device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=device)
+    if causal:
+        mask = kj <= qi
+    if window is not None:
+        mask = mask & (kj > qi - window)
+    if valid_len is not None:
+        mask = mask & (kj < valid_len)
+    return mask
+
+
+def _up(t):
+    """f32 for the working types, float64 kept as it is."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
+def _scale(scale, hd):
+    return float(scale if scale is not None else 1.0 / hd ** 0.5)
+
+
+def _ref_logits(q, k, scale, *, causal, window, valid_len, bias):
+    """Masked (B, KV, G, Sq, Sk) f32 logits and the (Sq, Sk) mask."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    qg = _up(q).reshape(B, S, KV, H // KV, hd)
+    logits = torch.einsum("bskgh,btkh->bkgst", qg, _up(k)) * scale
+    if bias is not None:
+        logits = logits + _up(bias)[:, None, None]
+    mask = _ref_mask(S, T, causal=causal, window=window, valid_len=valid_len,
+                     device=q.device)
+    return torch.where(mask, logits, torch.full_like(logits, NEG_INF)), mask
+
+
+def _ref_p(q, k, lse, scale, *, causal, window, valid_len, bias):
+    """(B, KV, G, Sq, Sk) attention weights recomputed from the stored lse."""
+    B, S, H, _ = q.shape
+    KV = k.shape[2]
+    logits, mask = _ref_logits(q, k, scale, causal=causal, window=window,
+                               valid_len=valid_len, bias=bias)
+    lseg = _up(lse).reshape(B, KV, H // KV, S)
+    return torch.where(mask, torch.exp(logits - lseg[..., None]),
+                       torch.zeros_like(logits))
+
+
+def flash_attention_fwd_ref(q, k, v, *, causal=True, window=None, valid_len=None,
+                            scale=None, bias=None):
+    """(o (B, Sq, H, hd) in q's type, lse (B, H, Sq) f32). Fully masked rows
+    give o = 0 and lse = 0, as the kernel's guard does."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    logits, mask = _ref_logits(q, k, _scale(scale, hd), causal=causal, window=window,
+                               valid_len=valid_len, bias=bias)
+    m = logits.amax(dim=-1)
+    m_safe = torch.where(m <= NEG_INF / 2, torch.zeros_like(m), m)
+    p = torch.where(mask, torch.exp(logits - m_safe[..., None]), torch.zeros_like(logits))
+    l = p.sum(dim=-1)
+    norm = torch.where(l <= 0.0, torch.ones_like(l), l)
+    lse = m_safe + torch.log(norm)
+    out = torch.einsum("bkgst,btkh->bskgh", p / norm[..., None], _up(v))
+    return out.reshape(B, S, H, hd).to(q.dtype), lse.reshape(B, H, S)
+
+
+def _delta_bsh(delta, B, S, KV, G):
+    """Δ (B, H, Sq) → (B, KV, G, Sq, 1)."""
+    return _up(delta).reshape(B, KV, G, S)[..., None]
+
+
+def _grad_terms(q, k, v, do, lse, delta, scale, kw):
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    p = _ref_p(q, k, lse, scale, **kw)
+    dog = _up(do).reshape(B, S, KV, G, hd)
+    dp = torch.einsum("bskgh,btkh->bkgst", dog, _up(v))
+    ds = p * (dp - _delta_bsh(delta, B, S, KV, G))
+    return p, ds, dog
+
+
+def flash_attention_dq_ref(q, k, v, do, lse, delta, *, causal=True, window=None,
+                           valid_len=None, scale=None, bias=None):
+    """dQ = scale·Σ_k P∘(dP − Δ)·K with P from lse → (B, Sq, H, hd) in q's type."""
+    B, S, H, hd = q.shape
+    sc = _scale(scale, hd)
+    kw = dict(causal=causal, window=window, valid_len=valid_len, bias=bias)
+    _, ds, _ = _grad_terms(q, k, v, do, lse, delta, sc, kw)
+    dq = sc * torch.einsum("bkgst,btkh->bskgh", ds, _up(k))
+    return dq.reshape(B, S, H, hd).to(q.dtype)
+
+
+def flash_attention_dkv_ref(q, k, v, do, lse, delta, *, causal=True, window=None,
+                            valid_len=None, scale=None, bias=None):
+    """Per-q-head (dk_h, dv_h), each (B, Sk, H, hd) f32: dK = scale·dSᵀQ,
+    dV = PᵀdO before the GQA group-sum."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    sc = _scale(scale, hd)
+    kw = dict(causal=causal, window=window, valid_len=valid_len, bias=bias)
+    p, ds, dog = _grad_terms(q, k, v, do, lse, delta, sc, kw)
+    qg = _up(q).reshape(B, S, KV, H // KV, hd)
+    dk = sc * torch.einsum("bkgst,bskgh->btkgh", ds, qg)
+    dv = torch.einsum("bkgst,bskgh->btkgh", p, dog)
+    return dk.reshape(B, T, H, hd), dv.reshape(B, T, H, hd)
+
+
+def flash_attention_jvp_ref(q, k, v, qt, kt, vt, lse, *, causal=True, window=None,
+                            valid_len=None, scale=None, bias=None):
+    """The tangent pass: (g (B, Sq, H, hd) f32, t (B, H, Sq) f32) with
+    Ṡ = scale·(Q̇Kᵀ + QK̇ᵀ), g = Σ_k P(Ṡ v + v̇), t = Σ_k P∘Ṡ; the caller
+    forms ȯ = g − t∘o."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    sc = _scale(scale, hd)
+    p = _ref_p(q, k, lse, sc, causal=causal, window=window, valid_len=valid_len,
+               bias=bias)
+    qg = _up(q).reshape(B, S, KV, G, hd)
+    qtg = _up(qt).reshape(B, S, KV, G, hd)
+    st = sc * (torch.einsum("bskgh,btkh->bkgst", qtg, _up(k))
+               + torch.einsum("bskgh,btkh->bkgst", qg, _up(kt)))
+    r = p * st
+    g = (torch.einsum("bkgst,btkh->bskgh", r, _up(v))
+         + torch.einsum("bkgst,btkh->bskgh", p, _up(vt)))
+    t = r.sum(dim=-1)
+    return g.reshape(B, S, H, hd), t.reshape(B, H, S)

@@ -1,1 +1,2 @@
-"""Models of the port: the paper's MLP classifiers."""
+"""Models of the port: the paper's MLP classifiers and the dense decoder
+transformers."""

@@ -260,3 +260,45 @@ def test_twin_backend_parity_bicgstab_s2():
         for a, b in zip(jax.tree_util.tree_leaves(jp2), tree_leaves(tp2)):
             np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-4,
                                        atol=max(1e-4, 10 * own))
+
+
+def test_gn_cg_s8_at_lambda_1_follows_roundoff_in_the_reference_too():
+    """ROADMAP Queue 3: on a 36-64x3-197 MLP at λ = 1, a gn_cg s=8 newton
+    step of 16 iterations (cg_tol 0) diverged in the port where the
+    reference's converged. The reference alone does the same: weights
+    perturbed by 1e-7 (f32 round-off) move its final Krylov residual over
+    many orders of magnitude on both of its backends, so which
+    implementation diverges on given inputs is round-off, not a fault of
+    the port. The port's step on the unperturbed inputs stays finite and
+    does not raise the loss."""
+    dims = (36, 64, 64, 64, 197)
+    jm = jax_build_mlp(dims)
+    jp = jm.init(jax.random.PRNGKey(0))
+    jb = jax_dataset(jax.random.PRNGKey(100), 512, dims[0], dims[-1])
+    jhvp = {k: x[:128] for k, x in jb.items()}
+    kw = dict(solver="gn_cg", sstep_s=8, sstep_basis="newton", max_cg_iters=16, cg_tol=0.0,
+              init_damping=1.0)
+    residuals = []
+    for backend in ("tree", "flat"):
+        jcfg = jhf.HFConfig(krylov_backend=backend, **kw)
+        step = jax.jit(lambda p, st: jhf.hf_step(
+            jm.loss_fn, p, st, jb, jhvp, jcfg, model_out_fn=jm.logits_fn,
+            out_loss_fn=jm.out_loss_fn)[2]["cg_residual"])
+        for t in range(3):
+            rng = np.random.default_rng(t)
+            p = jp if t == 0 else jax.tree_util.tree_map(
+                lambda a: (np.asarray(a) * (1 + 1e-7 * rng.standard_normal(a.shape))
+                           ).astype(np.float32), jp)
+            residuals.append(float(step(p, jhf.hf_init(p, jcfg))))
+    print("reference residuals (tree, then flat; unperturbed first):", residuals)
+    assert max(residuals) / min(residuals) > 1e3, residuals
+
+    tm = build_mlp(dims, device="cpu")
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    tb = batch_from_numpy({k: np.asarray(x) for k, x in jb.items()}, "cpu")
+    cfg = hf.HFConfig(krylov_backend="flat", **kw)
+    _, _, m = hf.hf_step(tm.loss_fn, tp, hf.hf_init(tp, cfg, device="cpu"), tb,
+                         {k: x[:128] for k, x in tb.items()}, cfg, model_out_fn=tm.logits_fn,
+                         out_loss_fn=tm.out_loss_fn, device="cpu")
+    print("port flat residual:", float(m["cg_residual"]))
+    assert np.isfinite(float(m["loss_new"])) and float(m["loss_new"]) <= float(m["loss"])

@@ -1,5 +1,6 @@
-"""Weights across the two packages, the port's import isolation, and its
-device rule (the ``device="cuda"`` default raises without CUDA)."""
+"""Weights across the two packages (the MLP's, and the transformer's nested
+stacked trees in f32 and bf16), the port's import isolation, and its device
+rule (the ``device="cuda"`` default raises without CUDA)."""
 import os
 import subprocess
 import sys
@@ -48,11 +49,50 @@ def test_numpy_round_trip_keeps_values_order_and_dtypes():
     assert batch["y"].dtype == torch.int64 and batch["x"].dtype == torch.float32
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_transformer_tree_round_trip_keeps_bits_and_leaf_order(dtype):
+    from repro.configs import get_smoke_config
+    from repro.models import build_model
+
+    cfg = get_smoke_config("qwen1.5-0.5b").replace(dtype=dtype)
+    jparams = jax.tree_util.tree_map(np.asarray,
+                                     build_model(cfg).init(jax.random.PRNGKey(0)))
+    port = params_from_numpy(jparams, "cpu")
+    jleaves = jax.tree_util.tree_flatten_with_path(jparams)[0]
+    pleaves = jax.tree_util.tree_flatten_with_path(port)[0]
+    from torch.utils._pytree import tree_leaves
+
+    assert [jax.tree_util.keystr(k) for k, _ in jleaves] == [
+        jax.tree_util.keystr(k) for k, _ in pleaves]
+    assert len(tree_leaves(port)) == len(jleaves)
+    want = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    assert all(t.dtype == want for t in tree_leaves(port))
+    assert tuple(port["blocks"]["b0_attn"]["attn"]["wq"]["w"].shape) == (2, 128, 128)
+    back = params_to_numpy(port)
+    for (_, a), b in zip(jleaves, jax.tree_util.tree_leaves(back)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a.view(np.uint16) if dtype == "bfloat16" else a,
+                                      b.view(np.uint16) if dtype == "bfloat16" else b)
+
+
+def test_port_never_calls_the_library_attention():
+    """scaled_dot_product_attention is the kernels' yardstick in chip_smoke.py,
+    never part of the port."""
+    src = os.path.join(ROOT, "src", "repro_torch")
+    for dirpath, _, files in os.walk(src):
+        for name in files:
+            if name.endswith((".py", ".cu", ".cpp", ".h")):
+                with open(os.path.join(dirpath, name)) as f:
+                    assert "scaled_dot_product_attention" not in f.read(), name
+
+
 def test_port_imports_neither_jax_nor_the_reference():
     code = (
         "import sys\n"
         "import repro_torch.core.hf, repro_torch.models.mlp, repro_torch.interop\n"
         "import repro_torch.kernels.ops, repro_torch.data.synthetic\n"
+        "import repro_torch.kernels.flash_ad, repro_torch.models.transformer\n"
+        "import repro_torch.launch.train, repro_torch.optim, repro_torch.configs\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
