@@ -6,7 +6,8 @@
 Phases, each printed on lines of its own; any failure exits non-zero:
 
 1. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
-             (``cg_fused.cu`` and ``flash_attention.cu``, one extension);
+             (``cg_fused.cu``, ``flash_attention.cu`` and ``flash_decode.cu``,
+             one extension);
              print the build time and the card's name and power limit.
 2. kernels — each Krylov kernel against its plain PyTorch version on the card
              at n = 1,722,293 (the TIMIT MLP's parameter count) and n = 65,537:
@@ -69,6 +70,32 @@ Phases, each printed on lines of its own; any failure exits non-zero:
              gradient, GN and Hessian products within 1e-4), and one gn_cg
              ``hf_step`` (λ 100, cg_tol 0) on the card against the CPU's
              plain versions (parameters within 1e-4).
+10. decode — the split-K decode kernels (``flash_decode``, dense rolling
+             cache; ``flash_decode_paged``, page pool) against their plain
+             versions on ``DECODE_CASES`` and ``PAGED_CASES`` in f32 and bf16:
+             relative error of max|plain| ≤ 1e-5 (f32) and ≤ 1e-2 (bf16), the
+             same against float64, the return_stats (m, l) within 1e-5, idle
+             rows exactly (0, NEG_INF, 0); times with L2 cold and warm, the
+             plain version's, ``scaled_dot_product_attention`` as the dense
+             kernel's yardstick, and the byte bound of the live K/V.
+11. serve   — the serving main path through ``repro_torch.launch.serve``:
+             Qwen2-1.5B at full width and depth (1,543,910,912 parameters,
+             bf16, random weights from seed 0), flash attention. Batch-at-once
+             16 x (896 + 128): prefill, decode, tok/s, peak memory, launches
+             (flash forward 28, flash_decode 28 x 127). Continuous batching of
+             32 requests (lengths uniform in [32, 128] from seed 0, one
+             arriving every 4 steps) on 16 slots with pages of 16: steps,
+             tok/s, time to first token, peak memory, pages free, the page
+             pool's invariants, launches (flash forward 28 x 32,
+             flash_decode_paged 28 x the decode steps). Launch counts are
+             zeroed just before each run and read just after. Then, from one
+             prefilled state, the first decode step's logits through the
+             kernels against the plain route and paged against dense (within
+             1e-2 of max|logit|), and 8 decode steps timed and profiled.
+12. serve checks — qwen2-1.5b's smoke config (hd 32) in f32 with flash on
+             the card: continuous batching (3 requests on 2 slots) gives
+             batch-at-once's tokens, the card gives the CPU's tokens for both,
+             and the first decode step's logits agree with the CPU's (1e-4).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the repository
@@ -122,14 +149,15 @@ def card_line() -> str:
 
 
 # ---------------------------------------------------------------- timing --
-def time_cold(torch, fn, flush, reps=20):
+def time_cold(torch, fn, flush, reps=20, sleep_cycles=200_000):
     """Median ms of one call with L2 flushed before it. A device-side sleep
     after the flush keeps the GPU busy while the host enqueues the call, so
-    no host gap enters the window."""
+    no host gap enters the window (a call that enqueues many launches from
+    Python needs a longer sleep)."""
     ts = []
     for _ in range(reps):
         flush.zero_()
-        torch.cuda._sleep(200_000)
+        torch.cuda._sleep(sleep_cycles)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -895,6 +923,410 @@ def phase_profile_sstep(torch, model, batch, hvp_batch):
     return results
 
 
+# ---------------------------------------------------- serving slice --
+# Dense decode cases: (tag, B, W, H, KV, hd, blk_k, n_splits, window, ragged),
+# the reference's FD_CASES (tests/test_flash_decode.py) of head dim >= 32 (the
+# ragged ones with their last row fully masked, an idle slot), and the
+# serving slice's shape: Qwen2-1.5B's 12 heads over 2 kv heads at hd 128, its
+# 896 + 128 slots, every slot live (the last decode step).
+DECODE_CASES = (
+    ("fd0", 1, 128, 2, 2, 32, 64, 2, None, False),
+    ("fd1-gqa", 2, 256, 4, 2, 32, 64, 4, None, False),
+    ("fd2-window", 2, 300, 4, 1, 32, 64, 4, 90, False),
+    ("fd3-ragged", 3, 200, 4, 2, 32, 64, 8, None, True),
+    ("fd4-all", 2, 192, 8, 2, 64, 64, 3, 64, True),
+    ("slice", 16, 1024, 12, 2, 128, 128, 8, None, False),
+)
+# Paged cases: (tag, B, P, ps, maxp, H, KV, hd, window, seq_lens), the
+# reference's PAGED_CASES of head dim >= 32 (pages interleaved across the
+# pool, non-aligned lengths, a window that frees early pages), one with
+# unmapped pages between mapped ones and a fully masked row, and the slice's
+# shape: page size 16, 64 pages a slot, placed at random in its 1041-page pool.
+PAGED_CASES = (
+    ("paged0", 2, 8, 64, 3, 4, 2, 32, None, (130, 57)),
+    ("paged1-window", 3, 12, 64, 5, 2, 1, 32, 100, (320, 17, 64)),
+    ("paged2-holes", 3, 40, 16, 12, 12, 2, 128, None, (190, 77, 30)),
+    ("slice", 16, 1041, 16, 64, 12, 2, 128, None, tuple(1009 + i for i in range(16))),
+)
+DECODE_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+DECODE_NAMES = ("flash_decode", "flash_decode_paged")
+QWEN2 = "qwen2-1.5b"
+QWEN2_PARAMS = 1_543_910_912
+SERVE_B, SERVE_S, SERVE_GEN, SERVE_REQ, SERVE_PS = 16, 896, 128, 32, 16
+
+
+def _dense_case(torch, case, dtype, gen):
+    from repro_torch.kernels import flash_decode as fd
+
+    tag, B, W, H, KV, hd, blk_k, n_splits, window, ragged = case
+    rnd = lambda *s: torch.randn(*s, device="cuda", generator=gen).to(dtype)
+    q, k, v = rnd(B, H, hd), rnd(B, W, KV, hd), rnd(B, W, KV, hd)
+    ns, span = fd.split_layout(W, blk_k, n_splits)
+    pos = torch.arange(W, dtype=torch.int32, device="cuda")
+    t = (torch.tensor([(7 * b + 11) % W for b in range(B)], dtype=torch.int32, device="cuda")
+         if ragged else W - 1)
+    bias = fd.decode_bias(pos, t, window=window)
+    if ragged:
+        bias[-1] = fd.NEG_INF                       # an idle slot
+    live = int((bias > fd.NEG_INF / 2).expand(B, W).sum())
+    kv_row = KV * hd * q.element_size()
+    return dict(args=(q, k, v, bias), kw=dict(blk_k=blk_k, n_splits=n_splits),
+                raw=lambda: fd.extension().flash_decode(q, k, v, bias, ns, span, hd ** -0.5),
+                n_bytes=q.numel() * q.element_size() + 2 * live * kv_row + bias.numel() * 4)
+
+
+def _paged_case(torch, case, dtype, gen):
+    from repro_torch.kernels import flash_decode as fd
+
+    tag, B, P, ps, maxp, H, KV, hd, window, seq_lens = case
+    rnd = lambda *s: torch.randn(*s, device="cuda", generator=gen).to(dtype)
+    q, kp, vp = rnd(B, H, hd), rnd(P, ps, KV, hd), rnd(P, ps, KV, hd)
+    if tag == "slice":
+        place = (torch.randperm(P - 1, generator=torch.Generator().manual_seed(5)) + 1).tolist()
+    else:
+        place = [i % P for i in range(B * maxp)]
+    tbl = torch.full((B, maxp), -1, dtype=torch.int32)
+    nxt = 0
+    for b, n in enumerate(seq_lens):
+        for j in range(-(-n // ps)):
+            if tag == "paged2-holes" and j % 3 == 1:
+                continue                            # unmapped between mapped pages
+            tbl[b, j] = place[nxt]
+            nxt += 1
+        first_live = max(0, n - window) if window is not None else 0
+        tbl[b, [j for j in range(maxp) if (j + 1) * ps <= first_live]] = -1
+    tbl = tbl.cuda()
+    bias = fd.paged_bias(tbl, torch.tensor(seq_lens, dtype=torch.int32, device="cuda"), ps,
+                         window=window)
+    if tag == "paged2-holes":
+        bias[-1] = fd.NEG_INF                       # an idle slot
+    live_pages = int((bias.reshape(B, maxp, ps) > fd.NEG_INF / 2).any(-1).sum())
+    kv_page = ps * KV * hd * q.element_size()
+    return dict(args=(q, kp, vp, tbl, bias), kw={},
+                raw=lambda: fd.extension().flash_decode_paged(q, kp, vp, tbl, bias, hd ** -0.5),
+                n_bytes=(q.numel() * q.element_size() + 2 * live_pages * kv_page
+                         + bias.numel() * 4 + tbl.numel() * 4))
+
+
+def _decode_library(torch, x):
+    """``scaled_dot_product_attention`` on a dense case: q as (B, H, 1, hd)
+    against K/V as (B, KV, W, hd) (laid out before the timing), the bias as
+    its additive mask, GQA enabled."""
+    import torch.nn.functional as F
+
+    q, k, v, bias = x["args"]
+    ks, vs = (t.transpose(1, 2).contiguous() for t in (k, v))
+    mask = bias[:, None, None, :].to(q.dtype)
+    return lambda: F.scaled_dot_product_attention(q[:, :, None], ks, vs, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def phase_decode(torch, reps_cold=20, reps_warm=100):
+    """The two decode kernels against their plain versions on every case, f32
+    and bf16: the output against the plain version in f32 and in float64,
+    the return_stats (m, l) against the plain (m, l), and idle rows exactly
+    (0, NEG_INF, 0). ``ms`` times the wrapper (the kernel and the torch
+    merge of the splits), ``kernel_ms`` the kernel's launch alone. Returns
+    the records of the slice's cases in bf16."""
+    from repro_torch.kernels import flash_decode as fd, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    records = {}
+    for name, cases, make, kern_fn, plain_fn in (
+            ("flash_decode", DECODE_CASES, _dense_case, fd.flash_decode, ref.flash_decode_ref),
+            ("flash_decode_paged", PAGED_CASES, _paged_case, fd.flash_decode_paged,
+             ref.flash_decode_paged_ref)):
+        for case in cases:
+            for dtype in (torch.float32, torch.bfloat16):
+                dname = str(dtype).split(".")[-1]
+                x = make(torch, case, dtype, gen)
+                args, kw = x["args"], x["kw"]
+                up = lambda f: [f(a) for a in args[:3]] + list(args[3:])  # q, k, v upcast
+                kern = lambda: kern_fn(*args, return_stats=True, **kw)
+                plain = lambda: plain_fn(*up(lambda t: t.float()), return_stats=True)
+                got, want = kern(), plain()
+                want64 = plain_fn(*up(lambda t: t.double()), return_stats=True)
+                torch.cuda.synchronize()
+                rel, abs_err = _rel(got[:1], want[:1])
+                rel64, _ = _rel(got[:1], want64[:1])
+                live = want[1] > fd.NEG_INF / 2
+                stats_rel = max(
+                    float((got[1] - want[1])[live].abs().max() / want[1][live].abs().max()),
+                    float((got[2] - want[2]).abs().max() / want[2].abs().max()))
+                idle_ok = bool((got[1][~live] <= fd.NEG_INF / 2).all()
+                               and (got[2][~live] == 0).all() and (got[0][~live] == 0).all())
+                b_ms, b_by = bound_ms(x["n_bytes"] + got[0].numel() * got[0].element_size(), 0)
+                library = _decode_library(torch, x) if name == "flash_decode" else None
+                rec = {
+                    "case": case[0], "dtype": dname, "rel_err": rel, "rel_err_f64": rel64,
+                    "stats_rel_err": stats_rel, "idle_rows": int((~live).sum()),
+                    "max_abs_err": abs_err,
+                    # the wrapper enqueues ~10 launches from Python: a 2M-cycle
+                    # (~1 ms) sleep covers that, as 200k cycles may not
+                    "ms": time_cold(torch, kern, flush, reps_cold, 2_000_000),
+                    "ms_l2_warm": time_warm(torch, kern, reps_warm),
+                    "kernel_ms": time_cold(torch, x["raw"], flush, reps_cold),
+                    "kernel_ms_l2_warm": time_warm(torch, x["raw"], reps_warm),
+                    "plain_ms": time_cold(torch, plain, flush, 5, 2_000_000),
+                    "bound_ms": b_ms, "bound_by": b_by, "bytes": x["n_bytes"],
+                    "library_ms": (None if library is None
+                                   else time_cold(torch, library, flush, reps_cold,
+                                                  2_000_000)),
+                }
+                print(f"[decode] {name}: {json.dumps(rec)}", flush=True)
+                tol = DECODE_TOL[dname]
+                if not (rel <= tol and rel64 <= tol and stats_rel <= TOL and idle_ok):
+                    fail(f"{name} on {case[0]} {dname}: relative error {rel} (float64 "
+                         f"{rel64}), stats {stats_rel}, idle rows right: {idle_ok}")
+                if case[0] == "slice" and dtype == torch.bfloat16:
+                    records[name] = rec
+                del x
+    del flush
+    torch.cuda.empty_cache()
+    return records
+
+
+def _serve_requests(torch, cfg):
+    """The slice's 32 prompts of 896 tokens (``lm_batch`` from seed 1; the
+    first 16 are the batch-at-once batch), generation lengths uniform in
+    [32, 128] from seed 0, and arrivals every 4 steps."""
+    from repro_torch.data.synthetic import lm_batch
+
+    toks = lm_batch(torch.Generator().manual_seed(1), cfg, SERVE_REQ, SERVE_S + 1,
+                    device="cuda")["tokens"][:, :SERVE_S]
+    gen_lens = torch.randint(32, SERVE_GEN + 1, (SERVE_REQ,),
+                             generator=torch.Generator().manual_seed(0)).tolist()
+    return [toks[r:r + 1] for r in range(SERVE_REQ)], gen_lens, [4 * r for r in range(SERVE_REQ)]
+
+
+def _peak_gib(torch):
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_serve(torch, ops):
+    """The serving slice at full width and depth: Qwen2-1.5B (bf16, random
+    weights from seed 0, flash attention) through ``launch.serve.serve``
+    (batch-at-once, 16 x 896 + 128) and ``serve_continuous`` (32 requests on
+    16 slots, pages of 16). Launch counts are zeroed just before each and
+    read just after. Returns the weights, prompts and both runs' tokens and
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve, serve_continuous
+    from repro_torch.models.transformer import build_model
+    from torch.utils._pytree import tree_leaves
+
+    cfg = get_config(QWEN2)
+    params = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"[serve] {QWEN2}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads} (kv {cfg.n_kv_heads}, head dim {cfg.resolved_head_dim}), d_ff "
+          f"{cfg.d_ff}, vocab {cfg.padded_vocab}, {cfg.dtype}: {n_params} parameters; flash "
+          f"attention and flash decode", flush=True)
+    if n_params != QWEN2_PARAMS or cfg.param_count() != QWEN2_PARAMS:
+        fail(f"{QWEN2} has {n_params} parameters (param_count {cfg.param_count()}), "
+             f"expected {QWEN2_PARAMS}")
+    prompts, gen_lens, arrivals = _serve_requests(torch, cfg)
+    log = lambda line: print(f"[serve] {line}", flush=True)
+    kw = dict(smoke=False, use_flash_attention=True, params=params, log_fn=log)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    dense, st = serve(QWEN2, batch_size=SERVE_B, prompt_len=SERVE_S, gen_len=SERVE_GEN,
+                      prompts=prompts[:SERVE_B], **kw)
+    dense_launches = dict(ops.LAUNCHES)
+    want = {"flash_attention_fwd": cfg.n_layers, "flash_decode": cfg.n_layers * (SERVE_GEN - 1)}
+    print(f"[serve] batch-at-once {SERVE_B} x ({SERVE_S} + {SERVE_GEN}): prefill "
+          f"{st['prefill_s']:.4f} s (time to first token), decode {st['decode_s']:.4f} s, "
+          f"{st['tok_per_s']:.1f} tok/s end to end, {st['tok_per_s_decode']:.1f} tok/s decode, "
+          f"{1e3 * st['decode_s'] / (SERVE_GEN - 1):.2f} ms per decode step, peak "
+          f"{_peak_gib(torch):.2f} GiB; launches {dense_launches}, from the code {want}",
+          flush=True)
+    if {k: dense_launches[k] for k in want} != want:
+        fail(f"batch-at-once launches {dense_launches} differ from the code's {want}")
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    cont, cs = serve_continuous(QWEN2, batch_size=SERVE_B, n_requests=SERVE_REQ,
+                                prompt_len=SERVE_S, gen_len=SERVE_GEN, page_size=SERVE_PS,
+                                arrival_steps=arrivals, gen_lens=gen_lens, prompts=prompts,
+                                **kw)
+    cont_launches = dict(ops.LAUNCHES)
+    want = {"flash_attention_fwd": cfg.n_layers * SERVE_REQ,
+            "flash_decode_paged": cfg.n_layers * cs["decode_steps"]}
+    ttft = sorted(cs["ttft_s"])
+    print(f"[serve] continuous {SERVE_REQ} requests ({sum(gen_lens)} tokens, lengths "
+          f"{min(gen_lens)}-{max(gen_lens)}) on {SERVE_B} slots, pages of {SERVE_PS} "
+          f"({cs['n_pages']} pages): {cs['steps']} steps ({cs['decode_steps']} decode), "
+          f"{cs['wall_s']:.4f} s, {cs['tok_per_s']:.1f} tok/s, {cs['tok_per_step']:.3f} tok/step, "
+          f"{1e3 * cs['wall_s'] / cs['steps']:.2f} ms per step, time to first token median "
+          f"{1e3 * ttft[len(ttft) // 2]:.2f} ms max {1e3 * ttft[-1]:.2f} ms, peak "
+          f"{_peak_gib(torch):.2f} GiB, pages free at the end {cs['pages_free']} of "
+          f"{cs['n_pages'] - 1} (invariants held); launches {cont_launches}, from the code "
+          f"{want}", flush=True)
+    if {k: cont_launches[k] for k in want} != want:
+        fail(f"continuous launches {cont_launches} differ from the code's {want}")
+    if cs["pages_free"] != cs["n_pages"] - 1:
+        fail(f"continuous batching leaked pages: {cs['pages_free']} free")
+    for r in range(SERVE_REQ):
+        if not (cont[r, :gen_lens[r]] >= 0).all() or (cont[r, gen_lens[r]:] != 0).any():
+            fail(f"request {r}: tokens outside its {gen_lens[r]} generated")
+    same = sum(int((dense[r, :gen_lens[r]] == cont[r, :gen_lens[r]]).sum())
+               for r in range(SERVE_B))
+    prefix = [next((i for i in range(gen_lens[r]) if dense[r, i] != cont[r, i]), gen_lens[r])
+              for r in range(SERVE_B)]
+    print(f"[serve] dense against continuous greedy tokens (requests 0-{SERVE_B - 1}, bf16 "
+          f"random weights, not gated): {same} of {sum(gen_lens[:SERVE_B])} equal, first "
+          f"tokens {sum(int(dense[r, 0] == cont[r, 0]) for r in range(SERVE_B))} of {SERVE_B}, "
+          f"common prefix median {sorted(prefix)[SERVE_B // 2]}", flush=True)
+    return params, prompts, {"flash_decode": dense_launches["flash_decode"],
+                             "flash_decode_paged": cont_launches["flash_decode_paged"]}
+
+
+def _rel_logits(a, b):
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def phase_serve_fullwidth(torch, params, prompts):
+    """From one prefilled state of the slice (16 x 896, bf16, flash): the
+    first decode step's logits through the kernels against the plain route
+    (``_sdpa`` and the paged gather), and the paged path against the dense
+    one. In bf16 each route is also held against the same step in f32 (the
+    bf16 weights and caches upcast, plain route), and the comparisons are
+    repeated in f32 end to end. Then 8 decode steps are timed, profiled and
+    their host reads counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._pytree import tree_map
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.transformer import build_model
+
+    cfg = get_config(QWEN2)
+    max_len = SERVE_S + SERVE_GEN
+    flash = build_model(cfg.replace(use_flash_attention=True), device="cuda")
+    with torch.no_grad():
+        logits, cache = flash.prefill(params, {"tokens": torch.cat(prompts[:SERVE_B])}, max_len)
+        tok = logits[:, -1:].argmax(-1)
+        pc = flash.init_cache_paged(SERVE_B, max_len, 1 + SERVE_B * (max_len // SERVE_PS + 1),
+                                    SERVE_PS)
+        for b in range(SERVE_B):
+            _, pc = flash.prefill_paged(params, {"tokens": prompts[b]}, pc, b)
+
+    def dense_copy(dt):
+        kv = cache["b0_attn"]
+        return {"b0_attn": KVCache(kv.k.to(dt, copy=True), kv.v.to(dt, copy=True),
+                                   kv.pos.clone())}
+
+    out = {}
+    for dname, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        c = cfg.replace(dtype=dname)
+        fl = build_model(c.replace(use_flash_attention=True), device="cuda")
+        pl = build_model(c, device="cuda")
+        pp = tree_map(lambda t: t.to(dt), params)
+        with torch.no_grad():
+            out[dname] = {
+                "kernels": fl.decode_step(pp, tok, SERVE_S, dense_copy(dt))[0],
+                "plain": pl.decode_step(pp, tok, SERVE_S, dense_copy(dt))[0],
+                "paged": fl.decode_step_paged(pp, tok, pc._replace(
+                    k_pool=pc.k_pool.to(dt, copy=True), v_pool=pc.v_pool.to(dt, copy=True)))[0]}
+        del pp
+    del pc
+    torch.cuda.empty_cache()
+    b16, f32 = out["bfloat16"], out["float32"]
+    rel = {"f32 kernels/plain": _rel_logits(f32["kernels"], f32["plain"]),
+           "f32 paged/dense": _rel_logits(f32["paged"], f32["kernels"]),
+           "bf16 kernels/plain": _rel_logits(b16["kernels"], b16["plain"]),
+           "bf16 paged/dense": _rel_logits(b16["paged"], b16["kernels"])}
+    to_f32 = {k: _rel_logits(v, f32["plain"]) for k, v in b16.items()}
+    same = lambda a, b: int((a.argmax(-1) == b.argmax(-1)).sum())
+    print(f"[serve-check] {QWEN2}, {SERVE_B} x {SERVE_S}, first decode step's logits, "
+          f"relative to max|logit|: " + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+          + "; bf16 routes against the f32 step: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in to_f32.items())
+          + f"; bf16 argmax equal kernels/plain {same(b16['kernels'], b16['plain'])}, paged/"
+          f"dense {same(b16['paged'], b16['kernels'])} of {SERVE_B}", flush=True)
+    # f32: the kernels against the plain route without bf16 rounding. bf16:
+    # two routes that round attention differently part by ~1 bf16 ulp per
+    # layer in the bf16 residual stream, so each is held to the f32 step
+    # no worse than 1.5x the plain route is.
+    if not (rel["f32 kernels/plain"] <= 1e-4 and rel["f32 paged/dense"] <= 1e-4
+            and max(to_f32["kernels"], to_f32["paged"]) <= 1.5 * to_f32["plain"]):
+        fail(f"full-width first-step logits differ: {rel}, against f32 {to_f32}")
+
+    def steps(t0, n=8):
+        nonlocal cache, tok
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.no_grad():
+            for i in range(n):
+                lg, cache = flash.decode_step(params, tok, t0 + i, cache)
+                tok = lg.argmax(-1)
+                tok.cpu()
+        return (time.perf_counter() - t) * 1e3 / n
+
+    steps(SERVE_S, 4)  # warm
+    step_ms = steps(SERVE_S + 4)
+    reads = count_host_reads(torch, lambda: steps(SERVE_S + 12, 1))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_ms = steps(SERVE_S + 13)
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3 / 8
+    fdk = [e for e in kern if "fd_kernel" in e.key]
+    fd_ms = sum(e.self_device_time_total for e in fdk) / 1e3 / 8
+    print(f"[serve-profile] decode step ({SERVE_B} x 1 token, {cfg.n_layers} layers): wall "
+          f"{step_ms:.3f} ms unprofiled, {prof_ms:.3f} ms profiled; device busy {busy:.3f} ms = "
+          f"{100 * busy / step_ms:.2f}% of the unprofiled wall; flash_decode kernel "
+          f"{fd_ms:.4f} ms = {100 * fd_ms / max(busy, 1e-9):.2f}% of device time; "
+          f"{sum(e.count for e in kern) / 8:.0f} device kernels and {reads} host reads a step",
+          flush=True)
+    if busy <= 0:
+        fail("the profiler saw no device time in the decode steps")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"[serve-profile] {e.self_device_time_total / 1e3 / 8:9.4f} ms/step  "
+              f"x{e.count // 8:<4d} {e.key[:90]}", flush=True)
+
+
+def phase_serve_checks(torch):
+    """qwen2-1.5b's smoke config (d 128, 4 heads, kv 2, hd 32) in f32, flash
+    on the card: continuous batching gives batch-at-once's tokens, the card
+    gives the CPU's tokens for both, and the first decode step's logits
+    agree with the CPU's."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import serve, serve_continuous
+    from repro_torch.models.transformer import build_model
+    from repro_torch.data.synthetic import lm_batch
+
+    quiet = lambda line: None
+    kw = dict(smoke=True, prompt_len=8, gen_len=5, use_flash_attention=True, log_fn=quiet)
+    toks = {}
+    for dev in ("cuda", "cpu"):
+        toks[dev] = (serve(QWEN2, batch_size=3, device=dev, **kw)[0],
+                     serve_continuous(QWEN2, batch_size=2, n_requests=3, arrival_steps=[0, 0, 2],
+                                      device=dev, **kw)[0])
+    ok = {"continuous == batch-at-once (card)": (toks["cuda"][1] == toks["cuda"][0]).all(),
+          "batch-at-once card == CPU": (toks["cuda"][0] == toks["cpu"][0]).all(),
+          "continuous card == CPU": (toks["cuda"][1] == toks["cpu"][1]).all()}
+    cfg = get_smoke_config(QWEN2).replace(use_flash_attention=True)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = build_model(cfg, device=dev)
+        p = m.init(torch.Generator().manual_seed(0))
+        batch = lm_batch(torch.Generator().manual_seed(1), cfg, 3, 9, device=dev)
+        with torch.no_grad():
+            lg0, c = m.prefill(p, {"tokens": batch["tokens"][:, :8]}, 13)
+            lg1, _ = m.decode_step(p, lg0[:, -1:].argmax(-1), 8, c)
+        out[dev] = (lg0.cpu(), lg1.cpu())
+    rel = max(_rel_logits(a, b) for a, b in zip(out["cuda"], out["cpu"]))
+    print(f"[serve-check] {QWEN2} smoke (d 128, 4 heads, kv 2, hd 32), f32, flash: "
+          + ", ".join(f"{k}: {bool(v)}" for k, v in ok.items())
+          + f"; prefill and first decode logits card against CPU {rel:.3e} (limit 1e-4)",
+          flush=True)
+    if not all(ok.values()) or not rel <= 1e-4:
+        fail(f"serving checks failed: {ok}, logits {rel}")
+
+
 def main() -> None:
     import torch
 
@@ -931,6 +1363,14 @@ def main() -> None:
     del qparams, qstate
     torch.cuda.empty_cache()
     phase_transformer_checks(torch)
+    torch.cuda.empty_cache()
+    records.update(phase_decode(torch))
+    sparams, prompts, s_launches = phase_serve(torch, ops)
+    launches.update(s_launches)
+    phase_serve_fullwidth(torch, sparams, prompts)
+    del sparams, prompts
+    torch.cuda.empty_cache()
+    phase_serve_checks(torch)
 
     replaces = {
         "dot2": "cg_fused.py:146", "x_update": "cg_fused.py:42",
@@ -939,11 +1379,13 @@ def main() -> None:
         "flash_attention_dq": "flash_attention.py:363",
         "flash_attention_dkv": "flash_attention.py:397",
         "flash_attention_jvp": "flash_attention.py:443",
+        "flash_decode": "flash_decode.py:209", "flash_decode_paged": "flash_decode.py:271",
     }
+    source = lambda name: ("flash_attention.cu" if name in FLASH_NAMES else
+                           "flash_decode.cu" if name in DECODE_NAMES else "cg_fused.cu")
     kernels = [{
         "name": name, "route": "cuda",
-        "source": ("src/repro_torch/kernels/csrc/flash_attention.cu" if name in FLASH_NAMES
-                   else "src/repro_torch/kernels/csrc/cg_fused.cu"),
+        "source": f"src/repro_torch/kernels/csrc/{source(name)}",
         "replaces": f"src/repro/kernels/{replaces[name]}",
         "launches": launches[name], "max_abs_err": rec["max_abs_err"],
         "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],

@@ -9,6 +9,12 @@ reference's (the transformer's stacked ``blocks`` dict included).
 bfloat16 arrays (numpy's ``ml_dtypes.bfloat16``, what the JAX package's
 bf16 weights become) cross bit for bit through a 16-bit integer view, since
 ``torch.tensor`` does not take that numpy dtype.
+
+The generic conversion turns every tuple into a list and every integer
+array into int64, so the serving caches, which are NamedTuples holding
+int32 positions and page tables (the flash-decode kernel's type), cross
+through their own functions: ``kv_cache_from_numpy``,
+``paged_cache_from_numpy`` and their ``_to_numpy`` twins.
 """
 from __future__ import annotations
 
@@ -62,3 +68,38 @@ def params_to_numpy(tree):
     """The port's tree → the same tree of numpy arrays (bf16 leaves as
     ``ml_dtypes.bfloat16``)."""
     return tree_map(_to_numpy, tree)
+
+
+def _int32(x, dev):
+    return torch.from_numpy(np.asarray(x).astype(np.int32)).to(dev)
+
+
+def kv_cache_from_numpy(cache, device="cuda"):
+    """A dense cache (k, v, pos), e.g. the reference's ``KVCache`` of arrays,
+    per layer or stacked → the port's ``KVCache`` on ``device``, pos int32."""
+    from .models.attention import KVCache
+
+    dev = resolve_device(device)
+    k, v, pos = cache
+    return KVCache(_to_tensor(k, dev), _to_tensor(v, dev), _int32(pos, dev))
+
+
+def paged_cache_from_numpy(cache, device="cuda"):
+    """A paged cache (k_pool, v_pool, page_table, seq_len, free_pages,
+    n_free), e.g. the reference's ``PagedKVCache`` of arrays → the port's
+    ``PagedKVCache`` on ``device``, its five bookkeeping arrays int32."""
+    from .models.kv_paged import PagedKVCache
+
+    dev = resolve_device(device)
+    k_pool, v_pool, *book = cache
+    return PagedKVCache(_to_tensor(k_pool, dev), _to_tensor(v_pool, dev),
+                        *(_int32(x, dev) for x in book))
+
+
+def kv_cache_to_numpy(cache):
+    """The port's ``KVCache`` or ``PagedKVCache`` → the same NamedTuple of
+    numpy arrays."""
+    return type(cache)(*(_to_numpy(t) for t in cache))
+
+
+paged_cache_to_numpy = kv_cache_to_numpy

@@ -4,7 +4,9 @@
 Twins of the Pallas kernels in ``repro/kernels/cg_fused.py`` (``dot2``,
 ``x_update``, ``residual_dots``, ``dots_block``). The one extension holds
 every kernel of the port (the flash-attention passes of
-``csrc/flash_attention.cu`` too, launched by ``kernels.flash_attention``). It
+``csrc/flash_attention.cu`` too, launched by ``kernels.flash_attention``, and
+the split-K decode kernels of ``csrc/flash_decode.cu``, launched by
+``kernels.flash_decode``). It
 is compiled for ``sm_90a`` with ``torch.utils.cpp_extension.load`` at first
 use, into ``_build/`` beside this file (listed in ``.gitignore``); nothing is
 built when the module is imported. Every wrapper checks device, dtype, shape and contiguity and
@@ -19,7 +21,8 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = (_CSRC / "cg_fused_bind.cpp", _CSRC / "cg_fused.cu", _CSRC / "flash_attention.cu")
+SOURCES = (_CSRC / "cg_fused_bind.cpp", _CSRC / "cg_fused.cu", _CSRC / "flash_attention.cu",
+           _CSRC / "flash_decode.cu")
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17")
 
 GRAM_MAX_ROWS = 32  # most rows of U and of V that ``dots_block`` takes (csrc)

@@ -1,11 +1,13 @@
 // PyTorch binding of the port's kernels: the fused Krylov recurrences in
-// cg_fused.cu and the flash-attention passes in flash_attention.cu.
+// cg_fused.cu, the flash-attention passes in flash_attention.cu and the
+// split-K flash-decode kernels in flash_decode.cu.
 //
 // The only file that includes torch/extension.h (the kernels themselves are
 // plain CUDA C, so nvcc compiles them quickly). Each function checks its
 // tensors, allocates outputs and scratch, launches on the current stream and
 // checks every launch (C10_CUDA_KERNEL_LAUNCH_CHECK() for the Krylov
-// kernels; the flash launchers return cudaGetLastError(), raised here).
+// kernels; the flash and flash-decode launchers return cudaGetLastError(),
+// raised here).
 
 #include <torch/extension.h>
 
@@ -15,6 +17,7 @@
 #include <cuda_runtime.h>
 
 #include "flash_attention.h"
+#include "flash_decode.h"
 
 extern "C" {
 int cg_reduce_blocks(int64_t n);
@@ -299,6 +302,108 @@ std::vector<at::Tensor> flash_jvp(const at::Tensor& q, const at::Tensor& k, cons
   return {g, t};
 }
 
+// --------------------------------------------------------- flash decode --
+namespace {
+
+void check_decode_q(const at::Tensor& q) {
+  TORCH_CHECK(q.is_cuda() && q.is_contiguous() && q.dim() == 3,
+              "q must be a contiguous (B, H, hd) CUDA tensor");
+  TORCH_CHECK(q.scalar_type() == at::kFloat || q.scalar_type() == at::kBFloat16,
+              "q must be float32 or bfloat16");
+}
+
+FdArgs fd_args(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+               const at::Tensor& bias, double scale) {
+  check_decode_q(q);
+  for (const auto* t : {&k, &v}) {
+    TORCH_CHECK(t->is_cuda() && t->device() == q.device() && t->is_contiguous(),
+                "k and v must be contiguous CUDA tensors on ", q.device());
+    TORCH_CHECK(t->dim() == 4 && t->size(3) == q.size(2), "k and v must be 4-D with head dim ",
+                q.size(2));
+    TORCH_CHECK(t->scalar_type() == q.scalar_type(), "k and v must have q's dtype");
+  }
+  TORCH_CHECK(k.sizes() == v.sizes(), "k and v must have one shape");
+  TORCH_CHECK(k.size(2) > 0 && q.size(1) % k.size(2) == 0,
+              "heads must be a multiple of kv heads");
+  TORCH_CHECK(bias.is_cuda() && bias.device() == q.device() && bias.is_contiguous() &&
+                  bias.scalar_type() == at::kFloat && bias.dim() == 2,
+              "bias must be a contiguous 2-D float32 CUDA tensor on ", q.device());
+  FdArgs a{};
+  a.q = q.data_ptr();
+  a.k = k.data_ptr();
+  a.v = v.data_ptr();
+  a.bias = bias.data_ptr<float>();
+  a.B = (int)q.size(0);
+  a.H = (int)q.size(1);
+  a.hd = (int)q.size(2);
+  a.KV = (int)k.size(2);
+  a.scale = (float)scale;
+  a.dtype = q.scalar_type() == at::kFloat ? 0 : 1;
+  return a;
+}
+
+std::vector<at::Tensor> fd_outputs(FdArgs& a, const at::Tensor& q) {
+  const int64_t G = a.H / a.KV;
+  auto o = at::empty({a.B, a.KV, a.ns, G, a.hd}, q.options());
+  auto opts = q.options().dtype(at::kFloat);
+  auto m = at::empty({a.B, a.KV, a.ns, G}, opts);
+  auto l = at::empty({a.B, a.KV, a.ns, G}, opts);
+  a.o = o.data_ptr();
+  a.m = m.data_ptr<float>();
+  a.l = l.data_ptr<float>();
+  return {o, m, l};
+}
+
+}  // namespace
+
+// Per-split (o, m, l) of the dense split-K decode: n_splits splits of
+// ``span`` keys each over the (B, W, KV, hd) cache.
+std::vector<at::Tensor> flash_decode(const at::Tensor& q, const at::Tensor& k,
+                                     const at::Tensor& v, const at::Tensor& bias,
+                                     int64_t n_splits, int64_t span, double scale) {
+  FdArgs a = fd_args(q, k, v, bias, scale);
+  TORCH_CHECK(k.size(0) == q.size(0), "k must be (B, W, KV, hd) with q's batch");
+  const int64_t W = k.size(1);
+  TORCH_CHECK(W > 0 && span > 0 && n_splits > 0 && n_splits * span >= W &&
+                  (n_splits - 1) * span < W,
+              "splits of ", span, " keys x ", n_splits, " do not cover W = ", W);
+  TORCH_CHECK((bias.size(0) == 1 || bias.size(0) == q.size(0)) && bias.size(1) == W,
+              "bias must be (B|1, W)");
+  a.W = (int)W;
+  a.bias_b = (int)bias.size(0);
+  a.ns = (int)n_splits;
+  a.span = (int)span;
+  c10::cuda::CUDAGuard guard(q.device());
+  auto out = fd_outputs(a, q);
+  fa_check(fd_dense(&a, c10::cuda::getCurrentCUDAStream().stream()), "flash_decode");
+  return out;
+}
+
+// Per-page (o, m, l) of the paged decode over the (P, ps, KV, hd) pools.
+std::vector<at::Tensor> flash_decode_paged(const at::Tensor& q, const at::Tensor& k_pool,
+                                           const at::Tensor& v_pool,
+                                           const at::Tensor& page_table,
+                                           const at::Tensor& bias, double scale) {
+  FdArgs a = fd_args(q, k_pool, v_pool, bias, scale);
+  TORCH_CHECK(page_table.is_cuda() && page_table.device() == q.device() &&
+                  page_table.is_contiguous() && page_table.scalar_type() == at::kInt &&
+                  page_table.dim() == 2 && page_table.size(0) == q.size(0) &&
+                  page_table.size(1) > 0,
+              "page_table must be a contiguous (B, max_pages) int32 CUDA tensor");
+  const int64_t ps = k_pool.size(1), maxp = page_table.size(1);
+  TORCH_CHECK(k_pool.size(0) > 0 && ps > 0, "the pools must hold pages");
+  TORCH_CHECK(bias.size(0) == q.size(0) && bias.size(1) == maxp * ps,
+              "bias must be (B, max_pages * page_size)");
+  a.page_table = page_table.data_ptr<int>();
+  a.P = (int)k_pool.size(0);
+  a.ns = (int)maxp;
+  a.span = (int)ps;
+  c10::cuda::CUDAGuard guard(q.device());
+  auto out = fd_outputs(a, q);
+  fa_check(fd_paged(&a, c10::cuda::getCurrentCUDAStream().stream()), "flash_decode_paged");
+  return out;
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("dot2", &dot2, "(<u,v>, <v,v>) of flat f32 CUDA vectors");
   m.def("x_update", &x_update, "x + alpha*p + gamma*s of flat f32 CUDA vectors");
@@ -309,4 +414,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_dq", &flash_dq, "flash attention backward: dq");
   m.def("flash_dkv", &flash_dkv, "flash attention backward: per-q-head (dk, dv)");
   m.def("flash_jvp", &flash_jvp, "flash attention tangent pass: (g, t)");
+  m.def("flash_decode", &flash_decode, "split-K flash decode: per-split (o, m, l)");
+  m.def("flash_decode_paged", &flash_decode_paged, "paged flash decode: per-page (o, m, l)");
 }

@@ -3,10 +3,12 @@ flat Krylov backend's fused recurrences (``bicgstab_x_update``,
 ``bicgstab_residual_dots``, ``dot2``, ``gram_block``) and the raw
 flash-attention passes (``flash_attention_fwd``, ``flash_attention_dq``,
 ``flash_attention_dkv``, ``flash_attention_jvp``; the differentiable entry
-point is ``kernels.flash_ad.flash_mha``).
+point is ``kernels.flash_ad.flash_mha``) and the split-K decode
+(``flash_decode``, ``flash_decode_paged``, with the mask functions
+``decode_bias`` and ``paged_bias``).
 
 A CUDA tensor goes to the hand-written kernel (``kernels.cg_fused``,
-``kernels.flash_attention``); a CPU tensor goes to the plain version
+``kernels.flash_attention``, ``kernels.flash_decode``); a CPU tensor goes to the plain version
 (``kernels.ref``); anything else raises.
 There is no fallback from a failed build or launch to the plain version.
 
@@ -20,10 +22,13 @@ import torch
 
 from . import cg_fused, ref
 from . import flash_attention as fa
+from . import flash_decode as fd
+from .flash_decode import decode_bias, paged_bias  # noqa: F401  (the one decode mask)
 
 LAUNCHES = {"dot2": 0, "x_update": 0, "residual_dots": 0, "dots_block": 0,
             "flash_attention_fwd": 0, "flash_attention_dq": 0,
-            "flash_attention_dkv": 0, "flash_attention_jvp": 0}
+            "flash_attention_dkv": 0, "flash_attention_jvp": 0,
+            "flash_decode": 0, "flash_decode_paged": 0}
 
 
 def reset_launches() -> None:
@@ -131,4 +136,30 @@ def flash_attention_jvp(q, k, v, qt, kt, vt, lse, **kw):
         return ref.flash_attention_jvp_ref(q, k, v, qt, kt, vt, lse, **kw)
     out = fa.flash_attention_jvp(q, k, v, qt, kt, vt, lse, **kw)
     LAUNCHES["flash_attention_jvp"] += 1
+    return out
+
+
+# --------------------------------------------------------- flash decode --
+def flash_decode(q, k, v, bias, *, scale=None, blk_k=128, n_splits=8, return_stats=False):
+    """Dense split-K decode: q (B, H, hd), k/v (B, W, KV, hd), bias (B|1, W)
+    → o (B, H, hd), or (o, m, l) under ``return_stats``. The plain version
+    takes no split layout (``blk_k``, ``n_splits``)."""
+    if _route(q) == "cpu":
+        return ref.flash_decode_ref(q, k, v, bias, scale=scale, return_stats=return_stats)
+    out = fd.flash_decode(q, k, v, bias, scale=scale, blk_k=blk_k, n_splits=n_splits,
+                          return_stats=return_stats)
+    LAUNCHES["flash_decode"] += 1
+    return out
+
+
+def flash_decode_paged(q, k_pool, v_pool, page_table, bias, *, scale=None,
+                       return_stats=False):
+    """Paged decode over the (P, page_size, KV, hd) pools, one page per
+    split; returns as ``flash_decode``."""
+    if _route(q) == "cpu":
+        return ref.flash_decode_paged_ref(q, k_pool, v_pool, page_table, bias, scale=scale,
+                                          return_stats=return_stats)
+    out = fd.flash_decode_paged(q, k_pool, v_pool, page_table, bias, scale=scale,
+                                return_stats=return_stats)
+    LAUNCHES["flash_decode_paged"] += 1
     return out

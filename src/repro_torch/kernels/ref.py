@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the port's kernels (twins of
 ``repro/kernels/ref.py``): the fused Krylov recurrences
 (``bicgstab_x_update_ref``, ``bicgstab_residual_dots_ref``, ``dot2_ref`` and,
-for ``ops.gram_block``, ``gram_block_ref``) and the four flash-attention
-passes, each with its kernel's own outputs.
+for ``ops.gram_block``, ``gram_block_ref``), the four flash-attention
+passes, each with its kernel's own outputs, and the dense and paged decode
+(``flash_decode_ref``, ``flash_decode_paged_ref``).
 
 ``kernels.ops`` runs these for tensors on the CPU; ``chip_smoke.py`` holds
 each CUDA kernel against them on the card. Sums are ``torch.sum`` of the
@@ -183,3 +184,41 @@ def flash_attention_jvp_ref(q, k, v, qt, kt, vt, lse, *, causal=True, window=Non
          + torch.einsum("bkgst,btkh->bskgh", p, _up(vt)))
     t = r.sum(dim=-1)
     return g.reshape(B, S, H, hd), t.reshape(B, H, S)
+
+
+# -------------------------------------------------------------- decode --
+def flash_decode_ref(q, k, v, bias, *, scale=None, return_stats=False):
+    """Dense decode: q (B, H, hd), k/v (B, W, KV, hd), bias (B|1, W) additive
+    row (0 attendable, NEG_INF masked) → o (B, H, hd) in q's type; with
+    ``return_stats``, (o, m, l) with the row max m and the softmax mass l,
+    (B, H). One dense softmax, the weights rounded to v's type before the
+    product with V, as the reference's oracle; a row with no live key gives
+    o = 0, m = NEG_INF, l = 0, as the kernels' guard does (the reference's
+    oracle averages V there)."""
+    B, H, hd = q.shape
+    KV = k.shape[2]
+    qg = _up(q).reshape(B, KV, H // KV, hd)
+    logits = (torch.einsum("bkgh,btkh->bkgt", qg, _up(k)) * _scale(scale, hd)
+              + _up(bias)[:, None, None, :])
+    m = logits.amax(dim=-1)
+    m_safe = torch.where(m <= NEG_INF / 2, torch.zeros_like(m), m)
+    p = torch.exp(logits - m_safe[..., None])
+    l = p.sum(dim=-1)
+    w = p / torch.where(l <= 0.0, torch.ones_like(l), l)[..., None]
+    out = torch.einsum("bkgt,btkh->bkgh", _up(w.to(v.dtype)), _up(v))
+    out = out.reshape(B, H, hd).to(q.dtype)
+    if not return_stats:
+        return out
+    m = torch.where(m <= NEG_INF / 2, torch.full_like(m, NEG_INF), m)
+    return out, m.reshape(B, H), l.reshape(B, H)
+
+
+def flash_decode_paged_ref(q, k_pool, v_pool, page_table, bias, *, scale=None,
+                           return_stats=False):
+    """Paged decode: gather each sequence's pages into a dense copy (-1
+    reads page 0, masked by the bias), then ``flash_decode_ref``."""
+    B = q.shape[0]
+    pages = page_table.clamp_min(0).long()
+    k = k_pool[pages].reshape(B, -1, *k_pool.shape[2:])
+    v = v_pool[pages].reshape(B, -1, *v_pool.shape[2:])
+    return flash_decode_ref(q, k, v, bias, scale=scale, return_stats=return_stats)

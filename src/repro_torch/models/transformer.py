@@ -9,22 +9,37 @@ the flat Krylov layout and ``tree_pseudo_noise`` match the reference's leaf
 for leaf. The reference scans the stack with ``lax.scan``; the backbone here
 is a Python loop over the layer axis.
 
-``loss_fn`` is twice differentiable. The other families (MoE, SSM, hybrid,
-xLSTM, encoder-decoder, vlm) are ROADMAP item 18; ``prefill`` and
-``decode_step`` belong to serving (item 20); chunked cross-entropy
-(``ce_chunk > 0``) and the reference's ``remat`` of the layer scan are not
-ported yet.
+``loss_fn`` is twice differentiable. The serving paths are the reference's:
+``prefill``/``decode_step`` over a dense rolling cache, the per-slot
+``decode_step_ragged``, and ``prefill_paged``/``decode_step_paged`` over the
+shared page pool (``models.kv_paged``). The caches keep the reference's
+stacked layout, ``{"b0_attn": KVCache}`` with (L, B, W, KV, hd) K/V and
+(L, W) (ragged: (L, B, W)) positions, and (L, P, page_size, KV, hd) pools;
+the decode steps write them **in place** and return them (the reference's
+serving loop donates them to XLA for the same effect). The other families
+(MoE, SSM, hybrid, xLSTM, encoder-decoder, vlm) are ROADMAP item 18;
+chunked cross-entropy (``ce_chunk > 0``) and the reference's ``remat`` of
+the layer scan are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from .._device import resolve_device
-from .attention import attend_full, attn_init
+from . import kv_paged as kvp
+from .attention import (
+    KVCache,
+    attend_full,
+    attend_full_with_cache,
+    attn_init,
+    decode_attend,
+    decode_attend_ragged,
+    init_kv_cache,
+)
 from .layers import (
     apply_mlp,
     apply_norm,
@@ -45,9 +60,22 @@ class ModelApi(NamedTuple):
     loss_fn: Callable        # (params, batch) -> scalar  (twice differentiable)
     logits_fn: Callable      # (params, batch) -> (B, S, V) f32   [GN split: network]
     out_loss_fn: Callable    # (logits, batch) -> scalar          [GN split: loss]
-    prefill: Callable
-    decode_step: Callable
-    init_cache: Callable
+    prefill: Callable        # (params, batch, max_len) -> (logits (B,1,V), caches)
+    decode_step: Callable    # (params, token (B,1), t, caches) -> (logits, caches)
+    init_cache: Callable     # (batch_size, max_len) -> caches
+    # Continuous batching over per-slot positions and the paged pool. Every
+    # stack the port builds is a plain decoder, so all are set (the
+    # reference leaves them None for the hybrid and vlm families).
+    decode_step_ragged: Optional[Callable] = None
+    # (params, token (B,1), t (B,), caches, active (B,)) -> (logits, caches)
+    init_cache_ragged: Optional[Callable] = None
+    # (batch_size, max_len) -> caches with per-slot position rows
+    decode_step_paged: Optional[Callable] = None
+    # (params, token (B,1), paged_cache, active (B,)) -> (logits, paged_cache)
+    init_cache_paged: Optional[Callable] = None
+    # (batch_size, max_len, n_pages, page_size) -> PagedKVCache
+    prefill_paged: Optional[Callable] = None
+    # (params, batch (one prompt), paged_cache, slot) -> (logits, paged_cache)
 
 
 def _unit_init(gen, cfg, dtype, lead):
@@ -63,10 +91,8 @@ def _unit_init(gen, cfg, dtype, lead):
 def _unit_apply(unit, x, positions, cfg):
     """One ``("attn",)`` unit: pre-norm attention and MLP, each residual."""
     p = unit["b0_attn"]
-    h = apply_norm(p["norm1"], x, cfg.norm_eps)
-    x = x + attend_full(p["attn"], h, positions, cfg)
-    h = apply_norm(p["norm2"], x, cfg.norm_eps)
-    return x + apply_mlp(p["mlp"], h)
+    a = attend_full(p["attn"], apply_norm(p["norm1"], x, cfg.norm_eps), positions, cfg)
+    return _block_rest(p, x, a, cfg)
 
 
 def _decoder_backbone(params, x, positions, cfg):
@@ -74,11 +100,29 @@ def _decoder_backbone(params, x, positions, cfg):
     the layer axis: the backward of ``unbind`` is one ``stack``, where
     indexing layer by layer would add a zero-filled copy of the whole stack
     per layer."""
-    leaves, spec = tree_flatten(params["blocks"])
-    per_layer = [t.unbind(0) for t in leaves]
-    for i in range(len(per_layer[0])):
-        x = _unit_apply(tree_unflatten([t[i] for t in per_layer], spec), x, positions, cfg)
+    for unit in _layers(params["blocks"]):
+        x = _unit_apply(unit, x, positions, cfg)
     return x
+
+
+def _layers(tree):
+    """The per-layer slices of a tree stacked on a leading layer axis, each
+    leaf unbound once."""
+    leaves, spec = tree_flatten(tree)
+    per_layer = [t.unbind(0) for t in leaves]
+    return [tree_unflatten([t[i] for t in per_layer], spec) for i in range(len(per_layer[0]))]
+
+
+def _block_rest(p, x, a, cfg):
+    """The unit after its attention ``a``: the residual, then the MLP."""
+    x = x + a
+    return x + apply_mlp(p["mlp"], apply_norm(p["norm2"], x, cfg.norm_eps))
+
+
+def _stack(cache, n):
+    """A layer's cache repeated along a new leading layer axis (a copy per
+    layer, each written in place by the decode steps)."""
+    return tree_map(lambda a: a[None].repeat((n,) + (1,) * a.ndim), cache)
 
 
 def _ce_loss(logits, batch):
@@ -89,12 +133,6 @@ def _ce_loss(logits, batch):
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
     return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
-
-
-def _unported(what):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(what)
-    return fn
 
 
 def build_model(cfg, *, device="cuda") -> ModelApi:
@@ -141,6 +179,90 @@ def build_model(cfg, *, device="cuda") -> ModelApi:
                 "chunked cross-entropy (ce_chunk > 0) is not ported yet (ROADMAP item 16)")
         return _ce_loss(logits_fn(params, batch), batch)
 
-    serving = "prefill and decoding are serving's (ROADMAP item 20, slice 5)"
-    return ModelApi(cfg, init, loss_fn, logits_fn, out_loss_fn, _unported(serving),
-                    _unported(serving), _unported(serving))
+    # ------------------------------------------------------- serving --
+    def init_cache(batch_size, max_len, *, ragged=False):
+        return {"b0_attn": _stack(init_kv_cache(cfg, batch_size, max_len, dtype,
+                                                ragged=ragged, device=dev), n_units)}
+
+    def prefill(params, batch, max_len):
+        x = embed(params["embed"], batch["tokens"])
+        positions = torch.arange(x.shape[1], device=x.device)
+        kvs = []
+        for unit in _layers(params["blocks"]):
+            p = unit["b0_attn"]
+            a, kv = attend_full_with_cache(p["attn"], apply_norm(p["norm1"], x, cfg.norm_eps),
+                                           positions, cfg, max_len)
+            x = _block_rest(p, x, a, cfg)
+            kvs.append(kv)
+        caches = {"b0_attn": KVCache(*(torch.stack(t) for t in zip(*kvs)))}
+        return head(params, x[:, -1:]), caches
+
+    def _decode(params, token, caches, attend):
+        """Embed, then every layer with ``attend(p, h, layer_cache)``
+        writing its cache slice in place, then the head."""
+        x = embed(params["embed"], token)
+        kv = caches["b0_attn"]
+        for unit, k, v, pos in zip(_layers(params["blocks"]), kv.k.unbind(0),
+                                   kv.v.unbind(0), kv.pos.unbind(0)):
+            p = unit["b0_attn"]
+            a, _ = attend(p["attn"], apply_norm(p["norm1"], x, cfg.norm_eps), KVCache(k, v, pos))
+            x = _block_rest(p, x, a, cfg)
+        return head(params, x), caches
+
+    def decode_step(params, token, t, caches):
+        return _decode(params, token, caches,
+                       lambda p, h, c: decode_attend(p, h, t, c, cfg))
+
+    def decode_step_ragged(params, token, t, caches, active=None):
+        return _decode(params, token, caches,
+                       lambda p, h, c: decode_attend_ragged(p, h, t, c, cfg, active=active))
+
+    def init_cache_ragged(batch_size, max_len):
+        return init_cache(batch_size, max_len, ragged=True)
+
+    def init_cache_paged(batch_size, max_len, n_pages, page_size=128):
+        return kvp.init_paged_cache(cfg, n_units, batch_size, max_len, n_pages, dtype,
+                                    page_size, device=dev)
+
+    def prefill_paged(params, batch, cache, slot):
+        """Admit one prompt (batch["tokens"] (1, S)) into ``slot``: the dense
+        prefill, pages mapped for the slot, and each layer's K/V written
+        into the pool in logical order. The slot's row must be released.
+        Returns (last-token logits, cache)."""
+        S = batch["tokens"].shape[1]
+        logits, dcaches = prefill(params, batch, S)
+        kv = dcaches["b0_attn"]                    # k (L, 1, W, KV, hd)
+        B = cache.page_table.shape[0]
+        admit = torch.arange(B, device=dev) == slot
+        cache = kvp.alloc_prefill(cache, torch.where(admit, S, 0), admit,
+                                  window=cfg.sliding_window)
+        row = cache.page_table[slot][None]
+        # logical position i sits in rolling slot i % W; positions below the
+        # live window alias newer ones but land on unmapped pages (the null
+        # page), so the gather is safe
+        idx = torch.arange(S, device=dev) % kv.k.shape[2]
+        length = torch.full((1,), S, dtype=torch.int32, device=dev)
+        for kp, vp, k1, v1 in zip(cache.k_pool.unbind(0), cache.v_pool.unbind(0),
+                                  kv.k[:, :, idx].unbind(0), kv.v[:, :, idx].unbind(0)):
+            kvp.write_prefill_kv(kp, vp, row, k1, v1, length)
+        return logits, cache
+
+    def decode_step_paged(params, token, cache, active=None):
+        if active is None:
+            active = torch.ones((token.shape[0],), dtype=torch.bool, device=token.device)
+        cache = kvp.alloc_decode_page(cache, active)
+        x = embed(params["embed"], token)
+        for unit, kp, vp in zip(_layers(params["blocks"]), cache.k_pool.unbind(0),
+                                cache.v_pool.unbind(0)):
+            p = unit["b0_attn"]
+            a, _ = kvp.paged_decode_attend(p["attn"], apply_norm(p["norm1"], x, cfg.norm_eps),
+                                           (kp, vp), cache.page_table, cache.seq_len, cfg,
+                                           active=active)
+            x = _block_rest(p, x, a, cfg)
+        cache = kvp.advance_and_free(cache, active, window=cfg.sliding_window)
+        return head(params, x), cache
+
+    return ModelApi(cfg, init, loss_fn, logits_fn, out_loss_fn, prefill, decode_step,
+                    init_cache, decode_step_ragged=decode_step_ragged,
+                    init_cache_ragged=init_cache_ragged, decode_step_paged=decode_step_paged,
+                    init_cache_paged=init_cache_paged, prefill_paged=prefill_paged)

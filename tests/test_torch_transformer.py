@@ -225,10 +225,19 @@ def test_lm_batch_follows_the_reference_process():
 
 
 def test_serving_entry_points_raise_naming_their_slice(tiny):
+    """Serving (ROADMAP item 20) is ported: every serving entry point is set
+    and the dense cache has the reference's stacked layout (parity in
+    tests/test_torch_serve.py); chunked cross-entropy still raises naming
+    its item."""
     m = build_model(tiny["cfg"], device="cpu")
-    for fn in (m.prefill, m.decode_step, m.init_cache):
-        with pytest.raises(NotImplementedError, match="item 20"):
-            fn()
+    for name in ("prefill", "decode_step", "init_cache", "decode_step_ragged",
+                 "init_cache_ragged", "decode_step_paged", "init_cache_paged", "prefill_paged"):
+        assert callable(getattr(m, name)), name
+    cfg = tiny["cfg"]
+    kv = m.init_cache(3, 16)["b0_attn"]
+    assert kv.k.shape == (cfg.n_layers, 3, 16, cfg.n_kv_heads, cfg.resolved_head_dim)
+    assert kv.pos.shape == (cfg.n_layers, 16) and kv.pos.dtype == torch.int32
+    assert bool((kv.pos == -1).all())
     with pytest.raises(NotImplementedError, match="ce_chunk"):
         build_model(tiny["cfg"].replace(ce_chunk=64), device="cpu").loss_fn(tiny["tp"],
                                                                            tiny["tb"])
