@@ -6,8 +6,8 @@
 Phases, each printed on lines of its own; any failure exits non-zero:
 
 1. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
-             (``cg_fused.cu``, ``flash_attention.cu`` and ``flash_decode.cu``,
-             one extension);
+             (``cg_fused.cu``, ``flash_attention.cu``, ``flash_decode.cu`` and
+             ``ssd_scan.cu``, one extension);
              print the build time and the card's name and power limit.
 2. kernels — each Krylov kernel against its plain PyTorch version on the card
              at n = 1,722,293 (the TIMIT MLP's parameter count) and n = 65,537:
@@ -96,6 +96,35 @@ Phases, each printed on lines of its own; any failure exits non-zero:
              the card: continuous batching (3 requests on 2 slots) gives
              batch-at-once's tokens, the card gives the CPU's tokens for both,
              and the first decode step's logits agree with the CPU's (1e-4).
+13. ssd     — the SSD intra-chunk kernel (``ssd_intra``, ``csrc/ssd_scan.cu``)
+             against its plain version in f32 (TF32 off) and float64 on
+             ``SSD_CASES`` (the reference test's four, the smoke layer, a
+             fallback chunk of 7 and the slice's prefill: B 8, 7 chunks of
+             128, 112 heads of 64, N 64), log_a = -softplus(x) and
+             -softplus(x - 2): y, S, g and l each within 1e-5 of max|.| (g's
+             denominator at least 2^-126); the slice's case with bf16 B and
+             C too, timed with L2 cold and warm beside the plain version and
+             the f32 operation bound. Then ``ssd_chunked_pallas`` against
+             ``ssd_chunked``, with and without h0, within 2e-4.
+14. heads   — the six flash kernels at head dims 112 and 96 (zamba2-7b's
+             attention, 32 heads over 32, S 896; decode B 8, W 1024) in f32
+             and bf16 against their plain versions and float64, under the
+             gates of phases 2 and 10.
+15. hybrid serve — the hybrid's main path through ``launch.serve.serve``:
+             zamba2-7b at full width and depth (81 Mamba2 layers, 13 shared
+             attention blocks; 6,751,130,832 parameters in the tree,
+             param_count() 6,749,917,776; bf16, random weights from seed 0 on
+             the card), flash attention and the SSD kernel, batch-at-once
+             8 x (896 + 128): prefill, decode, tok/s, peak memory, launches
+             (ssd_intra 81, flash forward 13, flash_decode 13 x 127), zeroed
+             just before and read just after; then a prefill profiled and a
+             decode step timed and profiled.
+16. hybrid check — at full width from 2 prompts, in f32 and bf16, the
+             kernel route against the plain route (prefill logits, final
+             Mamba states, first decode logits): f32 within 1e-4, bf16 no
+             farther from the f32 plain route than 1.5x the plain route is;
+             then zamba2's smoke config in f32, card against CPU: prefill
+             logits (1e-4), 8 greedy tokens equal, one gn_cg hf_step (1e-4).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the repository
@@ -408,13 +437,13 @@ def _rel(got, want):
     return rel, max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
 
 
-def phase_flash(torch, reps_cold=20, reps_warm=50):
+def phase_flash(torch, reps_cold=20, reps_warm=50, cases=FLASH_CASES, label="flash"):
     """The four flash kernels against their plain versions on every case, f32
     and bf16; returns the records of the slice's case in bf16, keyed by name."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     records = {}
-    for case in FLASH_CASES:
+    for case in cases:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
             x = _flash_inputs(torch, case, dtype, gen)
@@ -440,7 +469,7 @@ def phase_flash(torch, reps_cold=20, reps_warm=50):
                     "library_ms": (None if library is None
                                    else time_cold(torch, library, flush, reps_cold)),
                 }
-                print(f"[flash] {name}: {json.dumps(rec)}", flush=True)
+                print(f"[{label}] {name}: {json.dumps(rec)}", flush=True)
                 if not (rel <= FLASH_TOL[dname] and rel64 <= FLASH_TOL[dname]):
                     fail(f"{name} on {case[0]} {dname}: relative error {rel} (against "
                          f"float64: {rel64}) > {FLASH_TOL[dname]}")
@@ -1021,7 +1050,8 @@ def _decode_library(torch, x):
                                                   enable_gqa=True)
 
 
-def phase_decode(torch, reps_cold=20, reps_warm=100):
+def phase_decode(torch, reps_cold=20, reps_warm=100, dense_cases=DECODE_CASES,
+                 paged_cases=PAGED_CASES, label="decode"):
     """The two decode kernels against their plain versions on every case, f32
     and bf16: the output against the plain version in f32 and in float64,
     the return_stats (m, l) against the plain (m, l), and idle rows exactly
@@ -1034,8 +1064,8 @@ def phase_decode(torch, reps_cold=20, reps_warm=100):
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     records = {}
     for name, cases, make, kern_fn, plain_fn in (
-            ("flash_decode", DECODE_CASES, _dense_case, fd.flash_decode, ref.flash_decode_ref),
-            ("flash_decode_paged", PAGED_CASES, _paged_case, fd.flash_decode_paged,
+            ("flash_decode", dense_cases, _dense_case, fd.flash_decode, ref.flash_decode_ref),
+            ("flash_decode_paged", paged_cases, _paged_case, fd.flash_decode_paged,
              ref.flash_decode_paged_ref)):
         for case in cases:
             for dtype in (torch.float32, torch.bfloat16):
@@ -1074,7 +1104,7 @@ def phase_decode(torch, reps_cold=20, reps_warm=100):
                                    else time_cold(torch, library, flush, reps_cold,
                                                   2_000_000)),
                 }
-                print(f"[decode] {name}: {json.dumps(rec)}", flush=True)
+                print(f"[{label}] {name}: {json.dumps(rec)}", flush=True)
                 tol = DECODE_TOL[dname]
                 if not (rel <= tol and rel64 <= tol and stats_rel <= TOL and idle_ok):
                     fail(f"{name} on {case[0]} {dname}: relative error {rel} (float64 "
@@ -1327,7 +1357,365 @@ def phase_serve_checks(torch):
         fail(f"serving checks failed: {ok}, logits {rel}")
 
 
+# ------------------------------------------------------- the hybrid slice --
+# SSD cases: (tag, B, nc, H, Q, N, P). The reference's four of
+# tests/test_ssd_kernel.py (chunk 16-128, N 16-64, P 16-64), the smoke
+# config's layer (Q 16, N 16, P 16), a chunk the model's fallback picks for
+# an odd prompt (Q 7) and the slice's prefill: zamba2-7b at full width, 8
+# prompts of 896 tokens (7 chunks of 128, 112 heads of 64, N 64).
+SSD_CASES = (
+    ("ref-chunk16", 1, 4, 1, 16, 16, 16),
+    ("ref-chunk32", 2, 4, 4, 32, 32, 64),
+    ("ref-chunk128", 1, 2, 2, 128, 64, 64),
+    ("ref-chunk64", 2, 1, 3, 64, 16, 32),
+    ("smoke", 2, 2, 16, 16, 16, 16),
+    ("fallback", 2, 3, 4, 7, 16, 16),
+    ("slice", 8, 7, 112, 128, 64, 64),
+)
+SSD_TOL = 1e-5
+# The flash kernels at head dims between their register widths: zamba2-7b's
+# attention (32 heads over 32, hd 112, S 896) and phi-3-vision's hd 96.
+HEAD_FLASH_CASES = (
+    ("hd112", 2, 896, 32, 32, 112, True, None, None, False),
+    ("hd96", 2, 896, 32, 32, 96, True, None, None, False),
+)
+HEAD_DECODE_CASES = (
+    ("hd112", 8, 1024, 32, 32, 112, 128, 8, None, False),
+    ("hd96", 8, 1024, 32, 32, 96, 128, 8, None, True),
+)
+HEAD_PAGED_CASES = (
+    ("hd112", 8, 8 * 64 + 1, 16, 64, 32, 32, 112, None, tuple(1009 + i for i in range(8))),
+    ("hd96", 8, 8 * 64 + 1, 16, 64, 32, 32, 96, None, tuple(977 + 5 * i for i in range(8))),
+)
+ZAMBA = "zamba2-7b"
+ZAMBA_TREE_PARAMS = 6_751_130_832   # the parameter tree, in both packages
+ZAMBA_PARAM_COUNT = 6_749_917_776   # param_count(): the reference's analytic count
+HYB_B, HYB_S, HYB_GEN = 8, 896, 128
+
+
+def _tri(q):
+    return q * (q + 1) // 2
+
+
+def ssd_cost(B, nc, H, Q, N, P, bc_bytes):
+    """(bytes, f32 operations) the SSD intra-chunk function needs: u, log_a,
+    B and C read once, y, S, g and l written once; C·Bᵀ on the causal
+    triangle once per (b, c), and per head y on the triangle and S."""
+    n_bytes = 4 * (2 * B * nc * H * Q * P + B * nc * H * N * P + 2 * B * nc * H * Q
+                   + B * nc * H) + 2 * B * nc * Q * N * bc_bytes
+    flops = B * nc * (2 * N * _tri(Q) + H * (2 * P * _tri(Q) + 2 * N * Q * P))
+    return n_bytes, flops
+
+
+def _ssd_rel(i, got, want):
+    """max |got - want| / max |want| of output i of (y, S, g, l). For g the
+    denominator is at least f32's smallest normal, 2^-126: a chunk of 128
+    steps of the reference test's decay has l_Q near -100 and g near
+    e^-100, a denormal that f32 holds to a few bits, in the kernel and the
+    plain version alike (which give it the same bits)."""
+    floor = 2.0 ** -126 if i == 2 else 1e-30
+    return float((got.double() - want.double()).abs().max()
+                 / max(float(want.double().abs().max()), floor))
+
+
+def phase_ssd(torch, reps_cold=20, reps_warm=50):
+    """``ssd_intra`` against ``ssd_intra_ref`` in f32 (TF32 off) and in
+    float64 on every case of ``SSD_CASES``, with log_a = -softplus(x) (the
+    reference test's draw) and -softplus(x - 2) (the model's regime, dt about
+    0.13): y, S, g and l each within 1e-5 of max|.|; the slice's case with
+    bf16 B and C as well, and timed (L2 cold and warm; the plain version).
+    Then ``ssd_chunked_pallas`` against the plain ``ssd_chunked`` with and
+    without h0, within 2e-4 (rtol and atol, the reference test's gate).
+    Returns the slice's record (bf16 B/C, the model's regime)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cg_fused, ops, ref, ssd_scan
+    from repro_torch.models.ssm import ssd_chunked
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    record = None
+    for tag, B, nc, H, Q, N, P in SSD_CASES:
+        if cg_fused.extension().ssd_intra_smem_bytes(Q, N, P) != ssd_scan.smem_bytes(Q, N, P):
+            fail(f"ssd_intra shared memory at {(Q, N, P)}: the kernel's layout and the "
+                 f"wrapper's check differ")
+        for regime, shift in (("reference", 0.0), ("model", 2.0)):
+            for bdt in ((torch.float32, torch.bfloat16) if tag == "slice" else (torch.float32,)):
+                rnd = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+                u, la = rnd(B, nc, H, Q, P), -F.softplus(rnd(B, nc, H, Q) - shift)
+                Bv, Cv = (rnd(B, nc, Q, N) * 0.5).to(bdt), (rnd(B, nc, Q, N) * 0.5).to(bdt)
+                kern = lambda: ops.ssd_intra(u, la, Bv, Cv)
+                plain = lambda: ref.ssd_intra_ref(u, la, Bv, Cv)
+                got, want = kern(), plain()
+                want64 = ref.ssd_intra_ref(u.double(), la, Bv.double(), Cv.double())
+                torch.cuda.synchronize()
+                rels = [_ssd_rel(i, g, w) for i, (g, w) in enumerate(zip(got, want))]
+                rels64 = [_ssd_rel(i, g, w) for i, (g, w) in enumerate(zip(got, want64))]
+                rec = {"case": tag, "shape": dict(zip("B nc H Q N P".split(),
+                                                      (B, nc, H, Q, N, P))),
+                       "log_a": regime, "bc_dtype": str(bdt).split(".")[-1],
+                       "rel_err": dict(zip("ySgl", rels)), "rel_err_f64": dict(zip("ySgl", rels64)),
+                       "max_abs_err": _rel(got, want)[1]}
+                if tag == "slice" and regime == "model":
+                    rec["ms"] = time_cold(torch, kern, flush, reps_cold)
+                    rec["ms_l2_warm"] = time_warm(torch, kern, reps_warm)
+                    rec["plain_ms"] = time_cold(torch, plain, flush, 5, 2_000_000)
+                    rec["bound_ms"], rec["bound_by"] = bound_ms(
+                        *ssd_cost(B, nc, H, Q, N, P, Bv.element_size()))
+                    rec["library_ms"] = None  # no single PyTorch call computes this function
+                    if bdt == torch.bfloat16:
+                        record = rec
+                print(f"[ssd] ssd_intra: {json.dumps(rec)}", flush=True)
+                if not max(rels + rels64) <= SSD_TOL:
+                    fail(f"ssd_intra on {tag} ({regime}, {bdt}): relative errors {rels}, "
+                         f"against float64 {rels64} > {SSD_TOL}")
+                del u, la, Bv, Cv, got, want, want64
+    del flush
+    torch.cuda.empty_cache()
+
+    for tag, B, nc, H, Q, N, P in SSD_CASES:
+        L = nc * Q
+        rnd = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+        u, la = rnd(B, L, H, P), -F.softplus(rnd(B, L, H) - 2.0)
+        Bv, Cv, h0 = rnd(B, L, N) * 0.5, rnd(B, L, N) * 0.5, rnd(B, H, N, P) * 0.3
+        worst = 0.0
+        for h in (None, h0):
+            with torch.no_grad():
+                got = ops.ssd_chunked_pallas(u, la, Bv, Cv, Q, h0=h)
+                want = ssd_chunked(u, la, Bv, Cv, Q, h0=h)
+            for g, w in zip(got, want):
+                worst = max(worst, float(((g - w).abs() / (2e-4 + 2e-4 * w.abs())).max()))
+        print(f"[ssd] ssd_chunked_pallas against ssd_chunked on {tag} (L {L}, chunk {Q}), "
+              f"with and without h0: worst |diff| / (2e-4 + 2e-4 |plain|) {worst:.3e} "
+              f"(limit 1)", flush=True)
+        if not worst <= 1.0:
+            fail(f"ssd_chunked_pallas differs from ssd_chunked on {tag}: {worst}")
+        del u, la, Bv, Cv, h0, got, want
+    torch.cuda.empty_cache()
+    return record
+
+
+def phase_heads(torch):
+    """The six flash kernels at head dims 112 and 96 (between the kernels'
+    register widths) against their plain versions and float64, f32 and bf16,
+    under the gates of the flash and decode phases."""
+    phase_flash(torch, reps_cold=5, reps_warm=10, cases=HEAD_FLASH_CASES, label="heads")
+    phase_decode(torch, reps_cold=5, reps_warm=10, dense_cases=HEAD_DECODE_CASES,
+                 paged_cases=HEAD_PAGED_CASES, label="heads")
+
+
+def _hybrid_launches(cfg):
+    """The launches one batch-at-once ``serve`` of the hybrid makes, from the
+    code: one SSD kernel per Mamba layer and one flash forward per group in
+    the prefill, one flash decode per group in each decode step."""
+    from repro_torch.models.transformer import hybrid_layout
+
+    G = hybrid_layout(cfg)[0]
+    return {"ssd_intra": cfg.n_layers, "flash_attention_fwd": G,
+            "flash_decode": G * (HYB_GEN - 1)}
+
+
+def phase_hybrid_serve(torch, ops):
+    """The hybrid's main path: zamba2-7b at full width and depth (bf16,
+    random weights from seed 0 on the card, flash attention and the SSD
+    kernel) through ``launch.serve.serve``, batch-at-once 8 x (896 + 128).
+    Launch counts are zeroed just before and read just after. Then a
+    profiled prefill, and 8 decode steps from it, timed and profiled. Returns the weights, the
+    prompts and the launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import build_model, hybrid_layout
+
+    cfg = get_config(ZAMBA)
+    params = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"[hybrid-serve] {ZAMBA}: {cfg.n_layers} Mamba2 layers (d_model {cfg.d_model}, "
+          f"d_inner {cfg.d_inner}: {cfg.ssm_n_heads} SSD heads of {cfg.ssm_head_dim}, state "
+          f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}), groups/per group/tail "
+          f"{hybrid_layout(cfg)}, shared attention {cfg.n_heads} heads (kv {cfg.n_kv_heads}, "
+          f"head dim {cfg.resolved_head_dim}), d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}, "
+          f"{cfg.dtype}: {n_params} parameters in the tree, param_count() "
+          f"{cfg.param_count()}", flush=True)
+    if n_params != ZAMBA_TREE_PARAMS or cfg.param_count() != ZAMBA_PARAM_COUNT:
+        fail(f"{ZAMBA} has {n_params} parameters (param_count {cfg.param_count()}), expected "
+             f"{ZAMBA_TREE_PARAMS} ({ZAMBA_PARAM_COUNT})")
+    toks = lm_batch(torch.Generator().manual_seed(1), cfg, HYB_B, HYB_S + 1,
+                    device="cuda")["tokens"][:, :HYB_S]
+    prompts = [toks[r:r + 1] for r in range(HYB_B)]
+    log = lambda line: print(f"[hybrid-serve] {line}", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out, st = serve(ZAMBA, smoke=False, batch_size=HYB_B, prompt_len=HYB_S, gen_len=HYB_GEN,
+                    use_flash_attention=True, params=params, prompts=prompts, log_fn=log)
+    launches = dict(ops.LAUNCHES)
+    want = _hybrid_launches(cfg)
+    print(f"[hybrid-serve] batch-at-once {HYB_B} x ({HYB_S} + {HYB_GEN}): prefill "
+          f"{st['prefill_s']:.4f} s (time to first token), decode {st['decode_s']:.4f} s, "
+          f"{1e3 * st['decode_s'] / (HYB_GEN - 1):.2f} ms per decode step, "
+          f"{st['tok_per_s_decode']:.1f} tok/s decode, {st['tok_per_s']:.1f} tok/s end to end, "
+          f"peak {_peak_gib(torch):.2f} GiB; launches {launches}, from the code {want}",
+          flush=True)
+    if {k: launches[k] for k in want} != want:
+        fail(f"hybrid serve launches {launches} differ from the code's {want}")
+    if not ((out >= 0) & (out < cfg.vocab_size)).all():
+        fail("hybrid serve produced tokens outside the vocabulary")
+
+    model = build_model(cfg.replace(use_flash_attention=True), device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        with torch.no_grad():
+            logits, cache = model.prefill(params, {"tokens": toks}, HYB_S + HYB_GEN)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    share = lambda name: sum(e.self_device_time_total for e in kern if name in e.key) / 1e3
+    print(f"[hybrid-profile] prefill ({HYB_B} x {HYB_S}): wall {1e3 * prof_s:.1f} ms profiled; "
+          f"device busy {busy:.3f} ms = {100 * busy / (1e3 * prof_s):.2f}%; ssd_intra kernel "
+          f"{share('ssd_intra_kernel'):.3f} ms, flash forward kernel "
+          f"{share('fa_forward_kernel'):.3f} ms; {sum(e.count for e in kern)} device kernels",
+          flush=True)
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[hybrid-profile] prefill {e.self_device_time_total / 1e3:9.3f} ms  "
+              f"x{e.count:<5d} {e.key[:90]}", flush=True)
+    tok = logits[:, -1:].argmax(-1)
+    if not bool(torch.isfinite(logits).all()):
+        fail("hybrid prefill logits are not finite")
+
+    def steps(t0, n=8):
+        nonlocal cache, tok
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.no_grad():
+            for i in range(n):
+                lg, cache = model.decode_step(params, tok, t0 + i, cache)
+                tok = lg.argmax(-1)
+                tok.cpu()
+        return (time.perf_counter() - t) * 1e3 / n
+
+    steps(HYB_S, 2)  # warm
+    step_ms = steps(HYB_S + 2)
+    reads = count_host_reads(torch, lambda: steps(HYB_S + 10, 1))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_ms = steps(HYB_S + 11)
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3 / 8
+    print(f"[hybrid-profile] decode step ({HYB_B} x 1 token, {cfg.n_layers} Mamba2 layers + "
+          f"{hybrid_layout(cfg)[0]} shared attention blocks): wall {step_ms:.3f} ms "
+          f"unprofiled, {prof_ms:.3f} ms profiled; device busy {busy:.3f} ms = "
+          f"{100 * busy / step_ms:.2f}% of the unprofiled wall; "
+          f"{sum(e.count for e in kern) / 8:.0f} device kernels and {reads} host reads a step",
+          flush=True)
+    if busy <= 0:
+        fail("the profiler saw no device time in the hybrid decode steps")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"[hybrid-profile] {e.self_device_time_total / 1e3 / 8:9.4f} ms/step  "
+              f"x{e.count // 8:<4d} {e.key[:90]}", flush=True)
+    del cache, logits
+    torch.cuda.empty_cache()
+    return params, prompts, {k: launches[k] for k in ("ssd_intra",)}
+
+
+def _hybrid_outputs(torch, model, params, toks, max_len):
+    """The prefill's last-token logits, its final Mamba states (every layer's,
+    concatenated) and the first decode step's logits."""
+    with torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": toks}, max_len)
+        states = torch.cat([cache["groups_mamba"]["b0_mamba"].state.flatten(0, 1),
+                            cache["tail"]["b0_mamba"].state])
+        first, _ = model.decode_step(params, logits[:, -1:].argmax(-1), toks.shape[1], cache)
+    return {"prefill logits": logits.float(), "final states": states.float(),
+            "first decode logits": first.float()}
+
+
+def phase_hybrid_check(torch, params, prompts):
+    """Full width, from the first 2 prompts, in f32 and bf16: the kernel route
+    (SSD kernel and flash kernels) against the plain route (``ssd_chunked``
+    and ``_sdpa``), on the prefill's last-token logits, its final Mamba
+    states and the first decode step's logits. f32 within 1e-4 of max|.|; in
+    bf16 each route no farther from the f32 plain route than 1.5x the plain
+    route is. Then the smoke config (f32) on the card against the CPU:
+    prefill logits within 1e-4, 8 greedy tokens equal, one gn_cg hf_step
+    (flash on, λ 100, cg_tol 0, krylov_jitter 0) within 1e-4."""
+    from torch.utils._pytree import tree_leaves, tree_map
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core.hf import HFConfig, hf_init, hf_step
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models.transformer import build_model
+
+    toks = torch.cat(prompts[:2])
+    max_len = HYB_S + HYB_GEN
+    out = {}
+    for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        cfg = get_config(ZAMBA).replace(dtype=dname)
+        p = params if dt == torch.bfloat16 else tree_map(
+            lambda t: t.float() if t.dtype == torch.bfloat16 else t, params)
+        for route, flash in (("kernels", True), ("plain", False)):
+            out[(dname, route)] = _hybrid_outputs(
+                torch, build_model(cfg.replace(use_flash_attention=flash), device="cuda"), p,
+                toks, max_len)
+        del p
+        torch.cuda.empty_cache()
+    names = list(out[("float32", "plain")])
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    f32 = {n: rel(out[("float32", "kernels")][n], out[("float32", "plain")][n]) for n in names}
+    b16 = {(r, n): rel(out[("bfloat16", r)][n], out[("float32", "plain")][n])
+           for r in ("kernels", "plain") for n in names}
+    print(f"[hybrid-check] {ZAMBA} full width, 2 x {HYB_S}, kernel route against plain route "
+          f"in f32, relative to max|.|: " + ", ".join(f"{n} {v:.3e}" for n, v in f32.items())
+          + "; bf16 routes against the f32 plain route: "
+          + ", ".join(f"{r} {n} {v:.3e}" for (r, n), v in b16.items()), flush=True)
+    bad = [n for n in names if not (f32[n] <= 1e-4
+                                    and b16[("kernels", n)] <= 1.5 * b16[("plain", n)])]
+    if bad:
+        fail(f"hybrid kernel route differs on {bad}: f32 {f32}, bf16 against f32 {b16}")
+    del out
+    torch.cuda.empty_cache()
+
+    cfg = get_smoke_config(ZAMBA).replace(use_flash_attention=True)
+    batch = lm_batch(torch.Generator().manual_seed(1), cfg, 3, 33, device="cpu")
+    res = {}
+    for dev in ("cuda", "cpu"):
+        m = build_model(cfg, device=dev)
+        p = m.init(torch.Generator().manual_seed(0))
+        b = {k: v.to(dev) for k, v in batch.items()}
+        with torch.no_grad():
+            lg, c = m.prefill(p, {"tokens": b["tokens"][:, :32]}, 40)
+            tok, gen_toks = lg[:, -1:].argmax(-1), []
+            for i in range(8):
+                lg1, c = m.decode_step(p, tok, 32 + i, c)
+                tok = lg1.argmax(-1)
+                gen_toks.append(tok)
+        hcfg = HFConfig(solver="gn_cg", krylov_backend="flat", init_damping=100.0, cg_tol=0.0,
+                        max_cg_iters=4, krylov_jitter=0.0)
+        step = hf_step(m.loss_fn, p, hf_init(p, hcfg, device=dev), b, b, hcfg,
+                       model_out_fn=m.logits_fn, out_loss_fn=m.out_loss_fn, device=dev)
+        res[dev] = (lg.cpu(), torch.cat(gen_toks, 1).cpu(),
+                    [t.cpu() for t in tree_leaves(step[0])], step[2])
+    logit_rel = _rel_logits(res["cuda"][0], res["cpu"][0])
+    same = bool((res["cuda"][1] == res["cpu"][1]).all())
+    worst = _worst_rel(torch, tree_leaves, res["cuda"][2], res["cpu"][2])
+    print(f"[hybrid-check] {ZAMBA} smoke (5 layers, d 128, hd 32, N 16, chunk 16), f32, "
+          f"kernels on the card against the CPU: prefill logits {logit_rel:.3e} (limit 1e-4), "
+          f"8 greedy tokens equal: {same}; one gn_cg hf_step (flash, lambda 100, cg_tol 0): "
+          f"loss_new {float(res['cuda'][3]['loss_new']):.7f} vs "
+          f"{float(res['cpu'][3]['loss_new']):.7f}, worst parameter relative diff {worst:.3e} "
+          f"(limit 1e-4)", flush=True)
+    if not (logit_rel <= 1e-4 and same and worst <= 1e-4):
+        fail(f"hybrid smoke card against CPU: logits {logit_rel}, tokens equal {same}, "
+             f"hf_step {worst}")
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1371,6 +1759,17 @@ def main() -> None:
     del sparams, prompts
     torch.cuda.empty_cache()
     phase_serve_checks(torch)
+    torch.cuda.empty_cache()
+    print(f"[card] {card_line()}", flush=True)
+    records["ssd_intra"] = phase_ssd(torch)
+    phase_heads(torch)
+    torch.cuda.empty_cache()
+    zparams, zprompts, z_launches = phase_hybrid_serve(torch, ops)
+    launches.update(z_launches)
+    torch.cuda.empty_cache()
+    phase_hybrid_check(torch, zparams, zprompts)
+    del zparams, zprompts
+    torch.cuda.empty_cache()
 
     replaces = {
         "dot2": "cg_fused.py:146", "x_update": "cg_fused.py:42",
@@ -1380,9 +1779,11 @@ def main() -> None:
         "flash_attention_dkv": "flash_attention.py:397",
         "flash_attention_jvp": "flash_attention.py:443",
         "flash_decode": "flash_decode.py:209", "flash_decode_paged": "flash_decode.py:271",
+        "ssd_intra": "ssd_scan.py:56",
     }
     source = lambda name: ("flash_attention.cu" if name in FLASH_NAMES else
-                           "flash_decode.cu" if name in DECODE_NAMES else "cg_fused.cu")
+                           "flash_decode.cu" if name in DECODE_NAMES else
+                           "ssd_scan.cu" if name == "ssd_intra" else "cg_fused.cu")
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{source(name)}",
@@ -1391,6 +1792,7 @@ def main() -> None:
         "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
     } for name, rec in records.items()]
+    print(f"[time] chip_smoke.py wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,9 @@ The generic conversion turns every tuple into a list and every integer
 array into int64, so the serving caches, which are NamedTuples holding
 int32 positions and page tables (the flash-decode kernel's type), cross
 through their own functions: ``kv_cache_from_numpy``,
-``paged_cache_from_numpy`` and their ``_to_numpy`` twins.
+``paged_cache_from_numpy``, ``mamba_cache_from_numpy`` (the Mamba block's
+(conv, state)), ``hybrid_cache_from_numpy`` (the zamba hybrid's dict of
+them, whose ``tail`` may be None) and their ``_to_numpy`` twins.
 """
 from __future__ import annotations
 
@@ -103,3 +105,37 @@ def kv_cache_to_numpy(cache):
 
 
 paged_cache_to_numpy = kv_cache_to_numpy
+
+
+def mamba_cache_from_numpy(cache, device="cuda"):
+    """A Mamba block's cache (conv, state), e.g. the reference's
+    ``MambaCache`` of arrays, per layer or stacked → the port's
+    ``MambaCache`` on ``device`` (state stays f32)."""
+    from .models.ssm import MambaCache
+
+    dev = resolve_device(device)
+    conv, state = cache
+    return MambaCache(_to_tensor(conv, dev), _to_tensor(state, dev))
+
+
+mamba_cache_to_numpy = kv_cache_to_numpy
+
+
+def hybrid_cache_from_numpy(cache, device="cuda"):
+    """The zamba hybrid's cache dict (``groups_attn`` a KV cache,
+    ``groups_mamba`` and ``tail`` ``{"b0_mamba": MambaCache}``, ``tail``
+    possibly None) → the port's, keys sorted."""
+    def mamba(c):
+        return None if c is None else {"b0_mamba": mamba_cache_from_numpy(c["b0_mamba"], device)}
+
+    return {"groups_attn": kv_cache_from_numpy(cache["groups_attn"], device),
+            "groups_mamba": mamba(cache["groups_mamba"]), "tail": mamba(cache["tail"])}
+
+
+def hybrid_cache_to_numpy(cache):
+    """The port's hybrid cache → the same dict of NamedTuples of numpy arrays."""
+    def mamba(c):
+        return None if c is None else {"b0_mamba": mamba_cache_to_numpy(c["b0_mamba"])}
+
+    return {"groups_attn": kv_cache_to_numpy(cache["groups_attn"]),
+            "groups_mamba": mamba(cache["groups_mamba"]), "tail": mamba(cache["tail"])}

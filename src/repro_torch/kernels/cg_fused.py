@@ -4,9 +4,10 @@
 Twins of the Pallas kernels in ``repro/kernels/cg_fused.py`` (``dot2``,
 ``x_update``, ``residual_dots``, ``dots_block``). The one extension holds
 every kernel of the port (the flash-attention passes of
-``csrc/flash_attention.cu`` too, launched by ``kernels.flash_attention``, and
+``csrc/flash_attention.cu`` too, launched by ``kernels.flash_attention``,
 the split-K decode kernels of ``csrc/flash_decode.cu``, launched by
-``kernels.flash_decode``). It
+``kernels.flash_decode``, and the SSD intra-chunk kernel of
+``csrc/ssd_scan.cu``, launched by ``kernels.ssd_scan``). It
 is compiled for ``sm_90a`` with ``torch.utils.cpp_extension.load`` at first
 use, into ``_build/`` beside this file (listed in ``.gitignore``); nothing is
 built when the module is imported. Every wrapper checks device, dtype, shape and contiguity and
@@ -22,7 +23,7 @@ import torch
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = (_CSRC / "cg_fused_bind.cpp", _CSRC / "cg_fused.cu", _CSRC / "flash_attention.cu",
-           _CSRC / "flash_decode.cu")
+           _CSRC / "flash_decode.cu", _CSRC / "ssd_scan.cu")
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17")
 
 GRAM_MAX_ROWS = 32  # most rows of U and of V that ``dots_block`` takes (csrc)

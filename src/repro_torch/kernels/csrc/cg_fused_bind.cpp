@@ -1,13 +1,14 @@
 // PyTorch binding of the port's kernels: the fused Krylov recurrences in
-// cg_fused.cu, the flash-attention passes in flash_attention.cu and the
-// split-K flash-decode kernels in flash_decode.cu.
+// cg_fused.cu, the flash-attention passes in flash_attention.cu, the
+// split-K flash-decode kernels in flash_decode.cu and the SSD intra-chunk
+// kernel in ssd_scan.cu.
 //
 // The only file that includes torch/extension.h (the kernels themselves are
 // plain CUDA C, so nvcc compiles them quickly). Each function checks its
 // tensors, allocates outputs and scratch, launches on the current stream and
 // checks every launch (C10_CUDA_KERNEL_LAUNCH_CHECK() for the Krylov
-// kernels; the flash and flash-decode launchers return cudaGetLastError(),
-// raised here).
+// kernels; the flash, flash-decode and SSD launchers return
+// cudaGetLastError(), raised here).
 
 #include <torch/extension.h>
 
@@ -18,6 +19,7 @@
 
 #include "flash_attention.h"
 #include "flash_decode.h"
+#include "ssd_scan.h"
 
 extern "C" {
 int cg_reduce_blocks(int64_t n);
@@ -404,6 +406,52 @@ std::vector<at::Tensor> flash_decode_paged(const at::Tensor& q, const at::Tensor
   return out;
 }
 
+// ------------------------------------------------------------ SSD scan --
+// (y, S, g, l) of the SSD intra-chunk kernel: u (B, nc, H, Q, P) and log_a
+// (B, nc, H, Q) float32, Bv and Cv (B, nc, Q, N) float32 or bfloat16.
+std::vector<at::Tensor> ssd_intra_fwd(const at::Tensor& u, const at::Tensor& log_a,
+                                      const at::Tensor& Bv, const at::Tensor& Cv) {
+  TORCH_CHECK(u.is_cuda() && u.is_contiguous() && u.scalar_type() == at::kFloat && u.dim() == 5,
+              "u must be a contiguous float32 (B, nc, H, Q, P) CUDA tensor");
+  const int64_t B = u.size(0), nc = u.size(1), H = u.size(2), Q = u.size(3), P = u.size(4);
+  TORCH_CHECK(log_a.is_cuda() && log_a.device() == u.device() && log_a.is_contiguous() &&
+                  log_a.scalar_type() == at::kFloat && log_a.sizes() == u.sizes().slice(0, 4),
+              "log_a must be a contiguous float32 (B, nc, H, Q) tensor on u's device");
+  for (const auto* t : {&Bv, &Cv}) {
+    TORCH_CHECK(t->is_cuda() && t->device() == u.device() && t->is_contiguous() &&
+                    t->dim() == 4 && t->size(0) == B && t->size(1) == nc && t->size(2) == Q,
+                "Bv and Cv must be contiguous (B, nc, Q, N) tensors on u's device");
+    TORCH_CHECK(t->scalar_type() == Bv.scalar_type() &&
+                    (t->scalar_type() == at::kFloat || t->scalar_type() == at::kBFloat16),
+                "Bv and Cv must both be float32 or both bfloat16");
+  }
+  TORCH_CHECK(Cv.sizes() == Bv.sizes(), "Bv and Cv must have one shape");
+  const int64_t N = Bv.size(3);
+  c10::cuda::CUDAGuard guard(u.device());
+  auto y = at::empty_like(u);
+  auto S = at::empty({B, nc, H, N, P}, u.options());
+  auto g = at::empty({B, nc, H}, u.options());
+  auto l = at::empty({B, nc, H, Q}, u.options());
+  SsdArgs a{};
+  a.u = u.data_ptr<float>();
+  a.log_a = log_a.data_ptr<float>();
+  a.Bv = Bv.data_ptr();
+  a.Cv = Cv.data_ptr();
+  a.y = y.data_ptr<float>();
+  a.S = S.data_ptr<float>();
+  a.g = g.data_ptr<float>();
+  a.l = l.data_ptr<float>();
+  a.B = (int)B;
+  a.nc = (int)nc;
+  a.H = (int)H;
+  a.Q = (int)Q;
+  a.N = (int)N;
+  a.P = (int)P;
+  a.bc_dtype = Bv.scalar_type() == at::kFloat ? 0 : 1;
+  fa_check(ssd_intra(&a, c10::cuda::getCurrentCUDAStream().stream()), "ssd_intra");
+  return {y, S, g, l};
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("dot2", &dot2, "(<u,v>, <v,v>) of flat f32 CUDA vectors");
   m.def("x_update", &x_update, "x + alpha*p + gamma*s of flat f32 CUDA vectors");
@@ -416,4 +464,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_jvp", &flash_jvp, "flash attention tangent pass: (g, t)");
   m.def("flash_decode", &flash_decode, "split-K flash decode: per-split (o, m, l)");
   m.def("flash_decode_paged", &flash_decode_paged, "paged flash decode: per-page (o, m, l)");
+  m.def("ssd_intra", &ssd_intra_fwd, "SSD intra-chunk: (y, S, g, l)");
+  m.def("ssd_intra_smem_bytes", &ssd_intra_smem_bytes,
+        "dynamic shared memory of one ssd_intra block at (Q, N, P)");
 }

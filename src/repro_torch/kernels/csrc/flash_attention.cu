@@ -24,8 +24,11 @@
 //     exactly one block, with no float atomics, so the results are as
 //     deterministic as the reference's.
 //   * Tiles of 32 rows are staged in shared memory as f32 (bf16 inputs are
-//     widened on load), rows padded to hd + 4 floats so that lane j reading
-//     row j as float4 hits distinct banks. Warp w owns 8 rows of its block's
+//     widened on load), rows padded to HD + 4 floats so that lane j reading
+//     row j as float4 hits distinct banks. HD, the register width, is 32, 64
+//     or 128, the smallest at or above the head dim hd (any multiple of 8 up
+//     to 128); columns [hd, HD) are staged as zeros and never stored, and
+//     every stride and offset in memory is hd's. Warp w owns 8 rows of its block's
 //     side; lane j owns row j of the staged tile on the other side, so the
 //     32-wide score row of a warp comes from float4 dot products with no
 //     reduction, and its softmax statistics from warp shuffles. The product
@@ -80,15 +83,17 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // Rows [r0, r0 + 32) of a (rows, row_stride) tensor, hd values each, into
-// shared memory as f32 rows of hd + 4; rows at or past n are zero.
+// shared memory as f32 rows of HD + 4 (HD >= hd, the register width);
+// rows at or past n and columns [hd, HD) are zero, so they add exact zeros
+// to every dot product.
 template <class T, int HD>
 __device__ __forceinline__ void stage(float* sm, const T* base, int64_t row_stride, int r0,
-                                      int n) {
+                                      int n, int hd) {
   constexpr int LD = HD + 4, V = HD / 4;
   for (int idx = threadIdx.x; idx < kCols * V; idx += kThreads) {
     const int r = idx / V, c = (idx - r * V) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < n) x = load4(base + (int64_t)(r0 + r) * row_stride + c);
+    if (r0 + r < n && c < hd) x = load4(base + (int64_t)(r0 + r) * row_stride + c);
     *reinterpret_cast<float4*>(sm + r * LD + c) = x;
   }
 }
@@ -204,10 +209,10 @@ __global__ void __launch_bounds__(kThreads) fa_forward_kernel(const FaArgs a) {
   float* sP = sV + kCols * LD;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const Heads hx = heads(a, b, h, HD);
+  const Heads hx = heads(a, b, h, a.hd);
   const T* k = static_cast<const T*>(a.k) + hx.k_off;
   const T* v = static_cast<const T*>(a.v) + hx.k_off;
-  stage<T, HD>(sQ, static_cast<const T*>(a.q) + hx.q_off, hx.q_stride, q0, a.Sq);
+  stage<T, HD>(sQ, static_cast<const T*>(a.q) + hx.q_off, hx.q_stride, q0, a.Sq, a.hd);
 
   float acc[kRows][DPL], m[kRows], l[kRows];
 #pragma unroll
@@ -222,8 +227,8 @@ __global__ void __launch_bounds__(kThreads) fa_forward_kernel(const FaArgs a) {
   key_range(a, q0, kb, ke);
   for (int k0 = kb; k0 < ke; k0 += kCols) {
     __syncthreads();
-    stage<T, HD>(sK, k, hx.k_stride, k0, a.Sk);
-    stage<T, HD>(sV, v, hx.k_stride, k0, a.Sk);
+    stage<T, HD>(sK, k, hx.k_stride, k0, a.Sk, a.hd);
+    stage<T, HD>(sV, v, hx.k_stride, k0, a.Sk, a.hd);
     __syncthreads();
     float s[kRows];
     dots<HD>(s, sQ + warp * kRows * LD, sK + lane * LD);
@@ -255,7 +260,8 @@ __global__ void __launch_bounds__(kThreads) fa_forward_kernel(const FaArgs a) {
     if (qp >= a.Sq) continue;
     const float norm = l[r] <= 0.f ? 1.f : l[r];
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) store1(o + qp * hx.q_stride + lane + 32 * c, acc[r][c] / norm);
+    for (int c = 0; c < DPL; ++c)
+      if (lane + 32 * c < a.hd) store1(o + qp * hx.q_stride + lane + 32 * c, acc[r][c] / norm);
     if (lane == 0) {
       const float m_fin = m[r] <= kNegInf / 2 ? 0.f : m[r];
       a.lse_out[((int64_t)b * a.H + h) * a.Sq + qp] = m_fin + logf(norm);
@@ -275,11 +281,11 @@ __global__ void __launch_bounds__(kThreads) fa_dq_kernel(const FaArgs a) {
   float* sS = sV + kCols * LD;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const Heads hx = heads(a, b, h, HD);
+  const Heads hx = heads(a, b, h, a.hd);
   const T* k = static_cast<const T*>(a.k) + hx.k_off;
   const T* v = static_cast<const T*>(a.v) + hx.k_off;
-  stage<T, HD>(sQ, static_cast<const T*>(a.q) + hx.q_off, hx.q_stride, q0, a.Sq);
-  stage<T, HD>(sDO, static_cast<const T*>(a.dout) + hx.q_off, hx.q_stride, q0, a.Sq);
+  stage<T, HD>(sQ, static_cast<const T*>(a.q) + hx.q_off, hx.q_stride, q0, a.Sq, a.hd);
+  stage<T, HD>(sDO, static_cast<const T*>(a.dout) + hx.q_off, hx.q_stride, q0, a.Sq, a.hd);
 
   float acc[kRows][DPL], lse[kRows], delta[kRows];
   const int64_t row0 = ((int64_t)b * a.H + h) * a.Sq;
@@ -296,8 +302,8 @@ __global__ void __launch_bounds__(kThreads) fa_dq_kernel(const FaArgs a) {
   key_range(a, q0, kb, ke);
   for (int k0 = kb; k0 < ke; k0 += kCols) {
     __syncthreads();
-    stage<T, HD>(sK, k, hx.k_stride, k0, a.Sk);
-    stage<T, HD>(sV, v, hx.k_stride, k0, a.Sk);
+    stage<T, HD>(sK, k, hx.k_stride, k0, a.Sk, a.hd);
+    stage<T, HD>(sV, v, hx.k_stride, k0, a.Sk, a.hd);
     __syncthreads();
     float s[kRows], dp[kRows];
     dots<HD>(s, sQ + warp * kRows * LD, sK + lane * LD);
@@ -321,7 +327,7 @@ __global__ void __launch_bounds__(kThreads) fa_dq_kernel(const FaArgs a) {
     if (qp >= a.Sq) continue;
 #pragma unroll
     for (int c = 0; c < DPL; ++c)
-      store1(dq + qp * hx.q_stride + lane + 32 * c, acc[r][c] * a.scale);
+      if (lane + 32 * c < a.hd) store1(dq + qp * hx.q_stride + lane + 32 * c, acc[r][c] * a.scale);
   }
 }
 
@@ -338,11 +344,11 @@ __global__ void __launch_bounds__(kThreads) fa_dkv_kernel(const FaArgs a) {
   float* sS = sP + kTile * kCols;
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const Heads hx = heads(a, b, h, HD);
+  const Heads hx = heads(a, b, h, a.hd);
   const T* q = static_cast<const T*>(a.q) + hx.q_off;
   const T* dout = static_cast<const T*>(a.dout) + hx.q_off;
-  stage<T, HD>(sK, static_cast<const T*>(a.k) + hx.k_off, hx.k_stride, k0, a.Sk);
-  stage<T, HD>(sV, static_cast<const T*>(a.v) + hx.k_off, hx.k_stride, k0, a.Sk);
+  stage<T, HD>(sK, static_cast<const T*>(a.k) + hx.k_off, hx.k_stride, k0, a.Sk, a.hd);
+  stage<T, HD>(sV, static_cast<const T*>(a.v) + hx.k_off, hx.k_stride, k0, a.Sk, a.hd);
 
   float dk[kRows][DPL], dv[kRows][DPL];
 #pragma unroll
@@ -356,8 +362,8 @@ __global__ void __launch_bounds__(kThreads) fa_dkv_kernel(const FaArgs a) {
   query_range(a, k0, qb, qe);
   for (int i0 = qb; i0 < qe; i0 += kCols) {
     __syncthreads();
-    stage<T, HD>(sQ, q, hx.q_stride, i0, a.Sq);
-    stage<T, HD>(sDO, dout, hx.q_stride, i0, a.Sq);
+    stage<T, HD>(sQ, q, hx.q_stride, i0, a.Sq, a.hd);
+    stage<T, HD>(sDO, dout, hx.q_stride, i0, a.Sq, a.hd);
     __syncthreads();
     const int qp = i0 + lane;
     const float lse = qp < a.Sq ? a.lse[row0 + qp] : 0.f;
@@ -378,14 +384,15 @@ __global__ void __launch_bounds__(kThreads) fa_dkv_kernel(const FaArgs a) {
     accumulate<HD>(dk, wS, sQ, lane);   // dS^T Q
   }
 
-  const int64_t o_stride = (int64_t)a.H * HD;
-  const int64_t o_off = (int64_t)b * a.Sk * o_stride + (int64_t)h * HD;
+  const int64_t o_stride = (int64_t)a.H * a.hd;
+  const int64_t o_off = (int64_t)b * a.Sk * o_stride + (int64_t)h * a.hd;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int kp = k0 + warp * kRows + r;
     if (kp >= a.Sk) continue;
 #pragma unroll
     for (int c = 0; c < DPL; ++c) {
+      if (lane + 32 * c >= a.hd) continue;
       a.dk[o_off + kp * o_stride + lane + 32 * c] = dk[r][c] * a.scale;
       a.dv[o_off + kp * o_stride + lane + 32 * c] = dv[r][c];
     }
@@ -407,13 +414,13 @@ __global__ void __launch_bounds__(kThreads) fa_jvp_kernel(const FaArgs a) {
   float* sR = sP + kTile * kCols;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const Heads hx = heads(a, b, h, HD);
+  const Heads hx = heads(a, b, h, a.hd);
   const T* k = static_cast<const T*>(a.k) + hx.k_off;
   const T* kt = static_cast<const T*>(a.kt) + hx.k_off;
   const T* v = static_cast<const T*>(a.v) + hx.k_off;
   const T* vt = static_cast<const T*>(a.vt) + hx.k_off;
-  stage<T, HD>(sQ, static_cast<const T*>(a.q) + hx.q_off, hx.q_stride, q0, a.Sq);
-  stage<T, HD>(sQT, static_cast<const T*>(a.qt) + hx.q_off, hx.q_stride, q0, a.Sq);
+  stage<T, HD>(sQ, static_cast<const T*>(a.q) + hx.q_off, hx.q_stride, q0, a.Sq, a.hd);
+  stage<T, HD>(sQT, static_cast<const T*>(a.qt) + hx.q_off, hx.q_stride, q0, a.Sq, a.hd);
 
   float acc[kRows][DPL], lse[kRows], t[kRows];
   const int64_t row0 = ((int64_t)b * a.H + h) * a.Sq;
@@ -431,10 +438,10 @@ __global__ void __launch_bounds__(kThreads) fa_jvp_kernel(const FaArgs a) {
   key_range(a, q0, kb, ke);
   for (int k0 = kb; k0 < ke; k0 += kCols) {
     __syncthreads();
-    stage<T, HD>(sK, k, hx.k_stride, k0, a.Sk);
-    stage<T, HD>(sKT, kt, hx.k_stride, k0, a.Sk);
-    stage<T, HD>(sV, v, hx.k_stride, k0, a.Sk);
-    stage<T, HD>(sVT, vt, hx.k_stride, k0, a.Sk);
+    stage<T, HD>(sK, k, hx.k_stride, k0, a.Sk, a.hd);
+    stage<T, HD>(sKT, kt, hx.k_stride, k0, a.Sk, a.hd);
+    stage<T, HD>(sV, v, hx.k_stride, k0, a.Sk, a.hd);
+    stage<T, HD>(sVT, vt, hx.k_stride, k0, a.Sk, a.hd);
     __syncthreads();
     float s[kRows], st1[kRows], st2[kRows];
     dots<HD>(s, sQ + warp * kRows * LD, sK + lane * LD);
@@ -462,7 +469,8 @@ __global__ void __launch_bounds__(kThreads) fa_jvp_kernel(const FaArgs a) {
     const int qp = q0 + warp * kRows + r;
     if (qp >= a.Sq) continue;
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) g[qp * hx.q_stride + lane + 32 * c] = acc[r][c];
+    for (int c = 0; c < DPL; ++c)
+      if (lane + 32 * c < a.hd) g[qp * hx.q_stride + lane + 32 * c] = acc[r][c];
     if (lane == 0) a.t[row0 + qp] = t[r];
   }
 }
@@ -500,14 +508,14 @@ int launch(Kind kind, const FaArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The register and shared-memory width: the smallest of 32, 64 and 128 at
+// or above the head dim, which may be any multiple of 8 up to 128.
 template <class T>
 int dispatch_hd(Kind kind, const FaArgs& a, cudaStream_t stream) {
-  switch (a.hd) {
-    case 32: return launch<T, 32>(kind, a, stream);
-    case 64: return launch<T, 64>(kind, a, stream);
-    case 128: return launch<T, 128>(kind, a, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (a.hd < 8 || a.hd > 128 || a.hd % 8) return (int)cudaErrorInvalidValue;
+  if (a.hd <= 32) return launch<T, 32>(kind, a, stream);
+  if (a.hd <= 64) return launch<T, 64>(kind, a, stream);
+  return launch<T, 128>(kind, a, stream);
 }
 
 int dispatch(Kind kind, const FaArgs* a, cudaStream_t stream) {

@@ -40,8 +40,8 @@ struct FaArgs {
 };
 
 // Each returns cudaGetLastError() after its launch (cudaSuccess when no
-// block was needed); cudaErrorInvalidValue for a head dim or dtype the
-// kernels do not take.
+// block was needed); cudaErrorInvalidValue for a head dim (any multiple of
+// 8 from 8 to 128 is taken) or dtype the kernels do not take.
 int fa_forward(const FaArgs* a, cudaStream_t stream);
 int fa_dq(const FaArgs* a, cudaStream_t stream);
 int fa_dkv(const FaArgs* a, cudaStream_t stream);

@@ -37,8 +37,12 @@
 //     with V reads the warp's weights back as float4 broadcasts while lanes
 //     split the head dim (lane + 32c), so V reads and o writes coalesce.
 //   * Loads are 16 bytes a thread over neighbouring elements of a row;
-//     tiles are widened to f32 rows padded to hd + 4 floats in shared
-//     memory, so lane j's float4 reads of row j hit distinct banks.
+//     tiles are widened to f32 rows padded to HD + 4 floats in shared
+//     memory, so lane j's float4 reads of row j hit distinct banks. HD, the
+//     register width, is 32, 64 or 128, the smallest at or above the head
+//     dim hd (any multiple of 8 up to 128: 16-byte loads in f32 and bf16);
+//     columns [hd, HD) are staged as zeros and never stored, and every
+//     stride and offset in memory is hd's.
 //   * A tile whose bias is NEG_INF (or below) for every key is skipped,
 //     K/V reads included: its logits round to NEG_INF in f32 and add
 //     exactly nothing. Unmapped pages, inactive slots and the empty part
@@ -100,16 +104,18 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Rows [0, NR) of a tensor whose rows lie ``stride`` elements apart, HD
-// values each, into shared memory as f32 rows of HD + 4; rows at or past n
-// are zero (and not read).
+// Rows [0, NR) of a tensor whose rows lie ``stride`` elements apart, hd
+// values each, into shared memory as f32 rows of HD + 4 (HD >= hd, the
+// register width); rows at or past n and columns [hd, HD) are zero (and not
+// read), so they add exact zeros to every dot product.
 template <class T, int HD, int NR>
-__device__ __forceinline__ void stage(float* sm, const T* base, int64_t stride, int n) {
+__device__ __forceinline__ void stage(float* sm, const T* base, int64_t stride, int n,
+                                      int hd) {
   constexpr int LD = HD + 4, C = 16 / sizeof(T), PER_ROW = HD / C;
   for (int idx = threadIdx.x; idx < NR * PER_ROW; idx += kThreads) {
     const int r = idx / PER_ROW, c = (idx - r * PER_ROW) * C;
     float x[C];
-    if (r < n) {
+    if (r < n && c < hd) {
       load16(base + (int64_t)r * stride + c, x);
     } else {
 #pragma unroll
@@ -133,7 +139,7 @@ __global__ void __launch_bounds__(kThreads) fd_kernel(const FdArgs a, const int 
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int G = a.H / a.KV;
-  const int64_t kstride = (int64_t)a.KV * HD;  // elements between neighbouring keys
+  const int64_t kstride = (int64_t)a.KV * a.hd;  // elements between neighbouring keys
 
   const T* kb;
   const T* vb;
@@ -142,21 +148,22 @@ __global__ void __launch_bounds__(kThreads) fd_kernel(const FdArgs a, const int 
   if (paged) {
     int page = a.page_table[(int64_t)b * a.ns + split];
     page = min(max(page, 0), a.P - 1);  // -1 (unmapped) reads page 0, masked by the bias
-    const int64_t off = (int64_t)page * a.span * kstride + (int64_t)kvh * HD;
+    const int64_t off = (int64_t)page * a.span * kstride + (int64_t)kvh * a.hd;
     kb = static_cast<const T*>(a.k) + off;
     vb = static_cast<const T*>(a.v) + off;
     bias = a.bias + ((int64_t)b * a.ns + split) * a.span;
     n_keys = a.span;
   } else {
     const int k0 = split * a.span;
-    const int64_t off = ((int64_t)b * a.W + k0) * kstride + (int64_t)kvh * HD;
+    const int64_t off = ((int64_t)b * a.W + k0) * kstride + (int64_t)kvh * a.hd;
     kb = static_cast<const T*>(a.k) + off;
     vb = static_cast<const T*>(a.v) + off;
     bias = a.bias + (int64_t)(a.bias_b > 1 ? b : 0) * a.W + k0;
     n_keys = min(a.span, a.W - k0);
   }
-  stage<T, HD, ROWS>(sQ, static_cast<const T*>(a.q) + ((int64_t)b * a.H + (int64_t)kvh * G) * HD,
-                     HD, G);
+  stage<T, HD, ROWS>(sQ,
+                     static_cast<const T*>(a.q) + ((int64_t)b * a.H + (int64_t)kvh * G) * a.hd,
+                     a.hd, G, a.hd);
 
   float acc[RPW][DPL], m[RPW], l[RPW];
 #pragma unroll
@@ -174,8 +181,8 @@ __global__ void __launch_bounds__(kThreads) fd_kernel(const FdArgs a, const int 
     // The same test in every warp, so the whole block skips or none does.
     if (!__any_sync(0xffffffffu, bv > kNegInf)) continue;
     __syncthreads();
-    stage<T, HD, kKeys>(sK, kb + t0 * kstride, kstride, n_keys - t0);
-    stage<T, HD, kKeys>(sV, vb + t0 * kstride, kstride, n_keys - t0);
+    stage<T, HD, kKeys>(sK, kb + t0 * kstride, kstride, n_keys - t0, a.hd);
+    stage<T, HD, kKeys>(sV, vb + t0 * kstride, kstride, n_keys - t0, a.hd);
     __syncthreads();
 
     float s[RPW];
@@ -238,7 +245,8 @@ __global__ void __launch_bounds__(kThreads) fd_kernel(const FdArgs a, const int 
     if (g >= G) continue;
     const float norm = l[r] <= 0.f ? 1.f : l[r];
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) store1(o + (row0 + g) * HD + lane + 32 * c, acc[r][c] / norm);
+    for (int c = 0; c < DPL; ++c)
+      if (lane + 32 * c < a.hd) store1(o + (row0 + g) * a.hd + lane + 32 * c, acc[r][c] / norm);
     if (lane == 0) {
       a.m[row0 + g] = m[r];
       a.l[row0 + g] = l[r];
@@ -271,14 +279,14 @@ int dispatch_rows(const FdArgs& a, int paged, cudaStream_t stream) {
   return (int)cudaErrorInvalidValue;
 }
 
+// The register and shared-memory width: the smallest of 32, 64 and 128 at
+// or above the head dim, which may be any multiple of 8 up to 128.
 template <class T>
 int dispatch_hd(const FdArgs& a, int paged, cudaStream_t stream) {
-  switch (a.hd) {
-    case 32: return dispatch_rows<T, 32>(a, paged, stream);
-    case 64: return dispatch_rows<T, 64>(a, paged, stream);
-    case 128: return dispatch_rows<T, 128>(a, paged, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (a.hd < 8 || a.hd > 128 || a.hd % 8) return (int)cudaErrorInvalidValue;
+  if (a.hd <= 32) return dispatch_rows<T, 32>(a, paged, stream);
+  if (a.hd <= 64) return dispatch_rows<T, 64>(a, paged, stream);
+  return dispatch_rows<T, 128>(a, paged, stream);
 }
 
 int dispatch(const FdArgs* a, int paged, cudaStream_t stream) {

@@ -35,7 +35,8 @@ struct FdArgs {
 };
 
 // Each returns cudaGetLastError() after its launch; cudaErrorInvalidValue
-// for a head dim, group size or dtype the kernels do not take.
+// for a head dim (any multiple of 8 from 8 to 128 is taken), group size or
+// dtype the kernels do not take.
 int fd_dense(const FdArgs* a, cudaStream_t stream);
 int fd_paged(const FdArgs* a, cudaStream_t stream);
 }

@@ -16,8 +16,15 @@ import torch
 
 from .cg_fused import extension
 
-HEAD_DIMS = (32, 64, 128)
+MAX_HEAD_DIM = 128  # head dims: multiples of 8 up to this (csrc: register widths 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_head_dim(hd):
+    """Raise unless the kernels take head dim ``hd``: a multiple of 8 (16-byte
+    loads in f32 and bf16) from 8 to ``MAX_HEAD_DIM``."""
+    if hd % 8 or not 8 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd} is not a multiple of 8 from 8 to {MAX_HEAD_DIM}")
 
 
 def _check_qkv(q, k, v):
@@ -29,8 +36,7 @@ def _check_qkv(q, k, v):
         if t.dtype not in DTYPES:
             raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
     B, Sq, H, hd = q.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} is not one of {HEAD_DIMS}")
+    check_head_dim(hd)
     if min(B, Sq, H) == 0 or k.shape[1] == 0 or k.shape[2] == 0:
         raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd or H % k.shape[2]:

@@ -29,9 +29,9 @@ from __future__ import annotations
 import torch
 
 from .cg_fused import extension
+from .flash_attention import check_head_dim
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_GROUP = 32        # most query heads per kv head (csrc: 4 warps x 8 rows)
 MAX_PAGE_SIZE = 128   # page sizes: multiples of 8 up to this
@@ -131,8 +131,7 @@ def _check_q_kv(q, k, v):
         if t.dtype not in DTYPES:
             raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
     B, H, hd = q.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} is not one of {HEAD_DIMS}")
+    check_head_dim(hd)
     if k.shape != v.shape or k.shape[3] != hd or min(B, H, k.shape[1], k.shape[2]) == 0:
         raise ValueError(f"k/v {tuple(k.shape)}, {tuple(v.shape)} do not fit q {tuple(q.shape)}")
     KV = k.shape[2]

@@ -5,10 +5,12 @@ flash-attention passes (``flash_attention_fwd``, ``flash_attention_dq``,
 ``flash_attention_dkv``, ``flash_attention_jvp``; the differentiable entry
 point is ``kernels.flash_ad.flash_mha``) and the split-K decode
 (``flash_decode``, ``flash_decode_paged``, with the mask functions
-``decode_bias`` and ``paged_bias``).
+``decode_bias`` and ``paged_bias``) and the SSD intra-chunk step
+(``ssd_intra``; the chunked scan around it is ``ssd_chunked_pallas``).
 
 A CUDA tensor goes to the hand-written kernel (``kernels.cg_fused``,
-``kernels.flash_attention``, ``kernels.flash_decode``); a CPU tensor goes to the plain version
+``kernels.flash_attention``, ``kernels.flash_decode``, ``kernels.ssd_scan``);
+a CPU tensor goes to the plain version
 (``kernels.ref``); anything else raises.
 There is no fallback from a failed build or launch to the plain version.
 
@@ -23,12 +25,14 @@ import torch
 from . import cg_fused, ref
 from . import flash_attention as fa
 from . import flash_decode as fd
+from . import ssd_scan as ssd
 from .flash_decode import decode_bias, paged_bias  # noqa: F401  (the one decode mask)
+from .ssd_scan import ssd_chunked_pallas  # noqa: F401  (the scan around ssd_intra)
 
 LAUNCHES = {"dot2": 0, "x_update": 0, "residual_dots": 0, "dots_block": 0,
             "flash_attention_fwd": 0, "flash_attention_dq": 0,
             "flash_attention_dkv": 0, "flash_attention_jvp": 0,
-            "flash_decode": 0, "flash_decode_paged": 0}
+            "flash_decode": 0, "flash_decode_paged": 0, "ssd_intra": 0}
 
 
 def reset_launches() -> None:
@@ -162,4 +166,15 @@ def flash_decode_paged(q, k_pool, v_pool, page_table, bias, *, scale=None,
     out = fd.flash_decode_paged(q, k_pool, v_pool, page_table, bias, scale=scale,
                                 return_stats=return_stats)
     LAUNCHES["flash_decode_paged"] += 1
+    return out
+
+
+# ------------------------------------------------------------ SSD scan --
+def ssd_intra(u, log_a, Bv, Cv):
+    """The SSD intra-chunk step: u (B, nc, H, Q, P), log_a (B, nc, H, Q), Bv/Cv
+    (B, nc, Q, N) shared across heads → (y, S, g, l), f32."""
+    if _route(u) == "cpu":
+        return ref.ssd_intra_ref(u, log_a, Bv, Cv)
+    out = ssd.ssd_intra(u, log_a, Bv, Cv)
+    LAUNCHES["ssd_intra"] += 1
     return out

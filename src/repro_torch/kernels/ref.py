@@ -2,8 +2,9 @@
 ``repro/kernels/ref.py``): the fused Krylov recurrences
 (``bicgstab_x_update_ref``, ``bicgstab_residual_dots_ref``, ``dot2_ref`` and,
 for ``ops.gram_block``, ``gram_block_ref``), the four flash-attention
-passes, each with its kernel's own outputs, and the dense and paged decode
-(``flash_decode_ref``, ``flash_decode_paged_ref``).
+passes, each with its kernel's own outputs, the dense and paged decode
+(``flash_decode_ref``, ``flash_decode_paged_ref``) and the SSD intra-chunk
+step (``ssd_intra_ref``).
 
 ``kernels.ops`` runs these for tensors on the CPU; ``chip_smoke.py`` holds
 each CUDA kernel against them on the card. Sums are ``torch.sum`` of the
@@ -222,3 +223,27 @@ def flash_decode_paged_ref(q, k_pool, v_pool, page_table, bias, *, scale=None,
     k = k_pool[pages].reshape(B, -1, *k_pool.shape[2:])
     v = v_pool[pages].reshape(B, -1, *v_pool.shape[2:])
     return flash_decode_ref(q, k, v, bias, scale=scale, return_stats=return_stats)
+
+
+# ----------------------------------------------------------------- SSD --
+def ssd_intra_ref(u, log_a, Bv, Cv):
+    """The SSD (Mamba2) intra-chunk step of each (batch, chunk, head), B and C
+    shared across heads: u (B, nc, H, Q, P), log_a (B, nc, H, Q), Bv and Cv
+    (B, nc, Q, N) → (y (B, nc, H, Q, P), S (B, nc, H, N, P), g (B, nc, H),
+    l (B, nc, H, Q)) with l = cumsum(log_a), y = ((C·Bᵀ) ∘ exp(lᵢ − lⱼ) ∘
+    causal)·u, S = Bᵀ(u ∘ exp(l_Q − l)) and g = exp(l_Q). Computed in f32
+    from the inputs as given (B and C widened), in float64 from float64 u.
+    The cumsum is summed in float64 and rounded once, as the kernel sums
+    it, so both give l the same bits (a sum in f32 differs by ~1e-5 at
+    l ≈ −100 and so does g)."""
+    wide = torch.float64 if u.dtype == torch.float64 else torch.float32
+    u, Bf, Cf = u.to(wide), Bv.to(wide), Cv.to(wide)
+    l = torch.cumsum(log_a.double(), dim=-1).to(wide)
+    Q = u.shape[3]
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=u.device).tril()
+    decay = torch.where(causal, torch.exp(l[..., :, None] - l[..., None, :]), 0.0)
+    scores = torch.einsum("bcin,bcjn->bcij", Cf, Bf)
+    y = torch.einsum("bchij,bchjp->bchip", scores[:, :, None] * decay, u)
+    s_dec = torch.exp(l[..., -1:] - l)
+    S = torch.einsum("bcjn,bchjp->bchnp", Bf, u * s_dec[..., None])
+    return y, S, torch.exp(l[..., -1]), l

@@ -5,6 +5,10 @@ lockstep (batch-at-once) over the dense rolling cache; the decode steps
 write the cache in place and the tokens land in a (B, gen_len) host buffer,
 one device-to-host copy of the token column per step.
 
+``serve`` takes the zamba2 hybrid too; ``serve_continuous`` takes the
+dense decoders only and raises ``ValueError`` for the hybrid, as the
+reference does.
+
 ``serve_continuous`` is the slot scheduler over the paged KV cache
 (``models/kv_paged.py``): requests arrive on a step clock, are admitted into
 free slots as pages allow (``prefill_paged`` writes their pages), every live
@@ -14,11 +18,15 @@ never wait on long ones and the pool holds about the live tokens.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --flash-attention [--continuous] [--full] [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
+      --flash-attention [--full] [--device cpu]
 
 The run is on the card unless ``--device cpu`` is given; ``--flash-attention``
 routes prefill and decode through the flash-attention and flash-decode
 kernels (their plain versions on the CPU), as the reference's
-``cfg.use_flash_attention`` does. ``--telemetry-dir`` raises
+``cfg.use_flash_attention`` does, and the hybrid's Mamba prefill through
+the SSD intra-chunk kernel (``ops.ssd_chunked_pallas``, the reference's
+drop-in for ``ssd_chunked``). ``--telemetry-dir`` raises
 ``NotImplementedError`` (telemetry is ROADMAP item 22).
 """
 from __future__ import annotations
@@ -120,6 +128,9 @@ def serve_continuous(arch: str, *, smoke=True, batch_size=4, n_requests=8, promp
     end (``pages_free``), after ``check_invariants`` held on the final
     pool."""
     dev, cfg, model, params = _setup(arch, smoke, use_flash_attention, device, params)
+    if model.decode_step_paged is None:
+        raise ValueError(f"{arch}: continuous batching needs a plain decoder stack "
+                         "(dense/moe family)")
     prompts = _prompts(cfg, n_requests, prompt_len, dev, prompts)
     if arrival_steps is None:
         arrival_steps = [0] * n_requests
@@ -210,7 +221,8 @@ def main(argv=None):
     ap.add_argument("--n-requests", type=int, default=8)
     ap.add_argument("--flash-attention", action="store_true",
                     help="route attention through the flash-attention and flash-decode "
-                         "kernels (their plain versions on the CPU)")
+                         "kernels and the hybrid's Mamba prefill through the SSD kernel "
+                         "(their plain versions on the CPU)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--telemetry-dir", default=None)
     args = ap.parse_args(argv)

@@ -44,6 +44,10 @@ CASES = {
     "ragged": (1, 256, 2, 1, 32, True, None, 130, False),
     "bias": (1, 128, 2, 1, 32, False, None, None, True),
     "noncausal": (1, 128, 4, 4, 32, False, None, None, False),
+    # head dims between the kernels' register widths: zamba2-7b's 112 and
+    # phi-3-vision's 96
+    "hd112": (1, 128, 2, 2, 112, True, None, None, False),
+    "hd96": (1, 128, 4, 2, 96, True, None, None, False),
 }
 KERNELS = ("fwd", "dq", "dkv", "jvp")
 
@@ -231,10 +235,11 @@ def test_cuda_wrappers_refuse_cpu_tensors_without_building():
 
 
 @pytest.mark.parametrize("shape,dtype,match", [
-    ((1, 8, 2, 48), torch.float32, "head dim"),
+    ((1, 8, 2, 44), torch.float32, "head dim"),
+    ((1, 8, 2, 136), torch.float32, "head dim"),
     ((1, 8, 2, 32), torch.float16, "float32 or bfloat16"),
     ((8, 2, 32), torch.float32, "4-D"),
-], ids=["head-dim", "dtype", "ndim"])
+], ids=["head-dim", "head-dim-above-128", "dtype", "ndim"])
 def test_flash_wrapper_rejects_what_the_kernels_do_not_take(shape, dtype, match, monkeypatch):
     """Checked as if the tensors were on the card: the shape and dtype
     checks come after the device check and before any build."""

@@ -75,6 +75,42 @@ def test_transformer_tree_round_trip_keeps_bits_and_leaf_order(dtype):
                                       b.view(np.uint16) if dtype == "bfloat16" else b)
 
 
+@pytest.mark.parametrize("dtype,n_layers", [("float32", 5), ("bfloat16", 4)],
+                         ids=["f32-tail", "bf16-no-tail"])
+def test_hybrid_cache_round_trip_keeps_bits_and_types(dtype, n_layers):
+    """The zamba hybrid's cache (a KVCache and MambaCaches, ``tail`` None when
+    the groups take every layer) crosses both ways bit for bit, with int32
+    positions, f32 states and the NamedTuples kept."""
+    from repro.configs import get_smoke_config
+    from repro.models import build_model
+    from repro_torch.interop import hybrid_cache_from_numpy, hybrid_cache_to_numpy
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.ssm import MambaCache
+
+    cfg = get_smoke_config("zamba2-7b").replace(dtype=dtype, n_layers=n_layers)
+    zeros = build_model(cfg).init_cache(2, 12)
+    rng = np.random.default_rng(0)
+    jcache = jax.tree_util.tree_map(
+        lambda a: (rng.integers(-1, 12, a.shape) if a.dtype == np.int32
+                   else rng.standard_normal(a.shape)).astype(a.dtype), zeros)
+    port = hybrid_cache_from_numpy(jcache, "cpu")
+    assert sorted(port) == ["groups_attn", "groups_mamba", "tail"]
+    assert isinstance(port["groups_attn"], KVCache)
+    assert isinstance(port["groups_mamba"]["b0_mamba"], MambaCache)
+    assert port["groups_attn"].pos.dtype == torch.int32
+    assert port["groups_mamba"]["b0_mamba"].state.dtype == torch.float32
+    assert port["groups_mamba"]["b0_mamba"].conv.dtype == getattr(torch, dtype)
+    assert (port["tail"] is None) == (n_layers % cfg.attn_every == 0)
+    back = hybrid_cache_to_numpy(port)
+    paths = lambda tree: [jax.tree_util.keystr(k) for k, _ in
+                          jax.tree_util.tree_flatten_with_path(tree)[0]]
+    assert paths(back) == paths(jcache)
+    bits = lambda x: x.view(np.uint16) if x.dtype.name == "bfloat16" else x
+    for a, b in zip(jax.tree_util.tree_leaves(jcache), jax.tree_util.tree_leaves(back)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(bits(a), bits(b))
+
+
 def test_port_never_calls_the_library_attention():
     """scaled_dot_product_attention is the kernels' yardstick in chip_smoke.py,
     never part of the port."""
@@ -93,6 +129,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.kernels.ops, repro_torch.data.synthetic\n"
         "import repro_torch.kernels.flash_ad, repro_torch.models.transformer\n"
         "import repro_torch.launch.train, repro_torch.optim, repro_torch.configs\n"
+        "import repro_torch.kernels.ssd_scan, repro_torch.models.ssm, repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"

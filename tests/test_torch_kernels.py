@@ -153,7 +153,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert ops.LAUNCHES == {"dot2": 0, "x_update": 0, "residual_dots": 0, "dots_block": 0,
                             "flash_attention_fwd": 0, "flash_attention_dq": 0,
                             "flash_attention_dkv": 0, "flash_attention_jvp": 0,
-                            "flash_decode": 0, "flash_decode_paged": 0}
+                            "flash_decode": 0, "flash_decode_paged": 0, "ssd_intra": 0}
 
 
 def test_dispatch_raises_for_other_devices():
