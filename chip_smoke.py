@@ -7,7 +7,9 @@ Phases, each printed on lines of its own; any failure exits non-zero:
 
 1. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
              (``cg_fused.cu``, ``flash_attention.cu``, ``flash_decode.cu`` and
-             ``ssd_scan.cu``, one extension);
+             ``ssd_scan.cu``, one extension); beside it, ``nvcc -Xptxas -v``
+             on ``flash_attention.cu`` alone prints the registers, spills and
+             shared memory of each instance of the two tensor-core kernels;
              print the build time and the card's name and power limit.
 2. kernels — each Krylov kernel against its plain PyTorch version on the card
              at n = 1,722,293 (the TIMIT MLP's parameter count) and n = 65,537:
@@ -19,15 +21,18 @@ Phases, each printed on lines of its own; any failure exits non-zero:
    n = 1,722,293 and (9, 17) at n = 65,537, relative error ≤ 1e-5 of max|G|,
    with ``U @ V.T`` (TF32 off) as its library yardstick.
    The four flash-attention kernels (forward, dQ, dK/dV, JVP) are held
-   against their plain versions on every case of ``FLASH_CASES`` in f32 and
-   bf16: relative error of max|plain| ≤ 1e-5 in f32 and ≤ 1e-2 in bf16
-   (against the plain version in f32 from the same bf16 inputs; bf16 output
-   rounding alone is ~4e-3), and the same against the plain version in
-   float64; times with L2 cold and warm, the plain version's, the library
-   yardstick (``scaled_dot_product_attention`` forward, and its backward for
-   dQ and dK/dV together) where one computes the same function, and the
-   bound (bytes over 3.35 TB/s, or the operations the mask lets through over
-   989 TFLOP/s in bf16 and 67 TFLOP/s in f32).
+   against their plain versions on every case of ``FLASH_CASES`` (head dims
+   32 to 128, 40 among them) in f32 and bf16: relative error of max|plain|
+   ≤ 1e-5 in f32 and ≤ 1e-2 in bf16 (against the plain version in f32 from
+   the same bf16 inputs; bf16 output rounding alone is ~4e-3), the same
+   against the plain version in float64 and, in bf16, against the plain
+   version run on the bf16 inputs themselves (rounding P and dS where the
+   reference rounds them); times with L2 cold and warm, the plain version's,
+   the library yardstick (``scaled_dot_product_attention`` forward, and its
+   backward for dQ and dK/dV together) where one computes the same
+   function, with the backend its top kernel's name shows, and the bound
+   (bytes over 3.35 TB/s, or the operations the mask lets through over 989
+   TFLOP/s in bf16 and 67 TFLOP/s in f32).
 3. slice   — the MLP main path: ``hf_init`` and 3 Bi-CG-STAB ``hf_step``s,
              then 1 ``gn_cg`` step, on the paper's TIMIT MLP (360-512x3-1973)
              with the flat Krylov backend, a synthetic batch of 4096 and the
@@ -91,7 +96,8 @@ Phases, each printed on lines of its own; any failure exits non-zero:
              zeroed just before each run and read just after. Then, from one
              prefilled state, the first decode step's logits through the
              kernels against the plain route and paged against dense (within
-             1e-2 of max|logit|), and 8 decode steps timed and profiled.
+             1e-2 of max|logit|), the prefill profiled, and 8 decode steps
+             timed and profiled.
 12. serve checks — qwen2-1.5b's smoke config (hd 32) in f32 with flash on
              the card: continuous batching (3 requests on 2 slots) gives
              batch-at-once's tokens, the card gives the CPU's tokens for both,
@@ -134,6 +140,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -175,6 +182,60 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+# ----------------------------------------------------------------- build --
+def start_ptxas():
+    """``nvcc -Xptxas -v`` on ``flash_attention.cu`` alone (plain C, no
+    PyTorch headers: seconds), started beside the extension's build."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from repro_torch.kernels import cg_fused
+
+    if CUDA_HOME is None:
+        fail("no CUDA toolkit found (CUDA_HOME)")
+    cg_fused.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = next(s for s in cg_fused.SOURCES if s.name == "flash_attention.cu")
+    return subprocess.Popen(
+        [str(Path(CUDA_HOME) / "bin" / "nvcc"), *cg_fused.CUDA_FLAGS,
+         "-Xptxas", "-v", "-c", str(src), "-o", str(cg_fused.BUILD_DIR / "fa_ptxas.o")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def print_ptxas(proc):
+    """Registers, spills and shared memory of each instance of the two
+    tensor-core flash kernels (the dynamic shared memory is the launcher's
+    formula: (64 + 4·64)·(HDP + 8)·2 B forward, (128 + 4·BQ)·(HDP + 8)·2 + 16·BQ
+    B dK/dV)."""
+    out, _ = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        fail(f"nvcc -Xptxas -v on flash_attention.cu failed:\n{out[-3000:]}")
+    func, frame, seen = None, None, set()
+    for line in out.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([\w]+)", line)
+        if m:
+            func = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = tuple(int(x) for x in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        k = re.search(r"(fa_forward_mma|fa_dkv_mma)I((?:Li\d+E)+)E", func or "")
+        if not (m and k):
+            continue
+        args = [int(x) for x in re.findall(r"Li(\d+)E", k.group(2))]
+        ld = args[0] + 8
+        smem = (2 * (64 + 4 * 64) * ld if k.group(1) == "fa_forward_mma"
+                else 2 * (128 + 4 * args[1]) * ld + 16 * args[1])
+        stack, st, lo = frame or (None, None, None)
+        print(f"[build] ptxas {k.group(1)}<{', '.join(map(str, args))}>: {m.group(1)} "
+              f"registers, spill stores {st} B, spill loads {lo} B, stack {stack} B, "
+              f"dynamic shared memory {smem} B", flush=True)
+        seen.add(k.group(1))
+    if seen != {"fa_forward_mma", "fa_dkv_mma"}:
+        fail(f"ptxas reported no tensor-core flash kernel: {sorted(seen)}\n{out[-2000:]}")
 
 
 # ---------------------------------------------------------------- timing --
@@ -342,7 +403,9 @@ def phase_kernels(torch, cg_fused, ref):
 # Flash-attention cases: (tag, B, S, H, KV, hd, causal, window, valid_len, bias).
 # "slice" is the transformer slice's gradient batch (Qwen1.5-0.5B's heads),
 # "curvature" its curvature batch; "gqa" is Qwen2-1.5B's attention; "ragged"
-# is S 130 padded to 256; "bias" has fully masked rows at the smoke head dim.
+# is S 130 padded to 256; "bias" has fully masked rows at the smoke head dim;
+# "hd40" is a head dim that is a multiple of 8 but not of 16 (the tensor-core
+# kernels pad it to 48).
 FLASH_CASES = (
     ("slice", 8, 512, 16, 16, 64, True, None, None, False),
     ("curvature", 2, 512, 16, 16, 64, True, None, None, False),
@@ -350,6 +413,7 @@ FLASH_CASES = (
     ("ragged", 2, 256, 16, 16, 64, True, None, 130, False),
     ("window", 2, 512, 16, 16, 64, True, 64, None, False),
     ("bias", 2, 256, 4, 4, 32, False, None, None, True),
+    ("hd40", 2, 384, 4, 2, 40, True, None, None, False),
 )
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 FLASH_NAMES = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
@@ -430,6 +494,32 @@ def _flash_calls(torch, x):
     }
 
 
+def _library_kernel(torch, library):
+    """(the name of the device kernel that takes the most time in one call
+    of ``library``, the SDPA backend that name shows) from torch.profiler;
+    (None, "not seen") if two profiled calls show no device kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    library()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            library()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if kern:
+            break
+    else:
+        return None, "not seen"
+    name = max(kern, key=lambda e: e.self_device_time_total).key
+    low = name.lower()
+    backend = ("cudnn" if "cudnn" in low else "flash" if "flash" in low else
+               "efficient" if ("fmha" in low or "cutlass" in low or "mem_eff" in low) else
+               "math")
+    return name[:120], backend
+
+
 def _rel(got, want):
     """max |got - want| / max |want| over the outputs, and the max |got - want|."""
     rel = max(float((g.double() - w.double()).abs().max()) / max(float(w.abs().max()), 1e-30)
@@ -439,7 +529,9 @@ def _rel(got, want):
 
 def phase_flash(torch, reps_cold=20, reps_warm=50, cases=FLASH_CASES, label="flash"):
     """The four flash kernels against their plain versions on every case, f32
-    and bf16; returns the records of the slice's case in bf16, keyed by name."""
+    and bf16 (in bf16 also against the plain version run on the bf16 inputs
+    themselves, rounding the weights where the reference rounds them);
+    returns the records of the slice's case in bf16, keyed by name."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     records = {}
@@ -447,11 +539,14 @@ def phase_flash(torch, reps_cold=20, reps_warm=50, cases=FLASH_CASES, label="fla
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
             x = _flash_inputs(torch, case, dtype, gen)
+            backends = {}  # one profile per library call (dQ and dK/dV share one)
             for name, (kern, plain_up, n_bytes, library) in _flash_calls(torch, x).items():
                 plain = lambda: plain_up(lambda t: t.float())
                 got, want = kern(), plain()
                 rel, abs_err = _rel(got, want)
                 rel64, _ = _rel(got, plain_up(lambda t: t.double()))
+                rel_in = (_rel(got, plain_up(lambda t: t))[0] if dtype == torch.bfloat16
+                          else rel)
                 torch.cuda.synchronize()
                 flops = FLASH_FLOPS_PER_PAIR[name] * case[5] * x["pairs"]
                 rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
@@ -461,18 +556,26 @@ def phase_flash(torch, reps_cold=20, reps_warm=50, cases=FLASH_CASES, label="fla
                     "shape": dict(zip(("B", "S", "H", "KV", "hd"), case[1:6])),
                     "causal": case[6], "window": case[7], "valid_len": case[8],
                     "bias": case[9], "rel_err": rel, "rel_err_f64": rel64,
-                    "max_abs_err": abs_err,
+                    "rel_err_plain_in_dtype": rel_in, "max_abs_err": abs_err,
                     "ms": time_cold(torch, kern, flush, reps_cold),
                     "ms_l2_warm": time_warm(torch, kern, reps_warm),
                     "plain_ms": time_cold(torch, plain, flush, 5),
                     "bound_ms": b_ms, "bound_by": b_by,
-                    "library_ms": (None if library is None
-                                   else time_cold(torch, library, flush, reps_cold)),
+                    # the library backward enqueues its kernels through autograd:
+                    # a longer sleep keeps that host work out of the window
+                    "library_ms": (None if library is None else
+                                   time_cold(torch, library, flush, reps_cold,
+                                             sleep_cycles=5_000_000)),
                 }
+                if library is not None:
+                    if library not in backends:
+                        backends[library] = _library_kernel(torch, library)
+                    rec["library_kernel"], rec["library_backend"] = backends[library]
                 print(f"[{label}] {name}: {json.dumps(rec)}", flush=True)
-                if not (rel <= FLASH_TOL[dname] and rel64 <= FLASH_TOL[dname]):
+                if not max(rel, rel64, rel_in) <= FLASH_TOL[dname]:
                     fail(f"{name} on {case[0]} {dname}: relative error {rel} (against "
-                         f"float64: {rel64}) > {FLASH_TOL[dname]}")
+                         f"float64: {rel64}, against the plain version in {dname}: "
+                         f"{rel_in}) > {FLASH_TOL[dname]}")
                 if case[0] == "slice" and dtype == torch.bfloat16:
                     records[name] = rec
             del x
@@ -862,7 +965,7 @@ def phase_transformer_profile(torch, params, state):
         prof_h = step()
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kern) / 1e3
-    flash = [e for e in kern if "fa_" in e.key and "_kernel" in e.key]
+    flash = [e for e in kern if "fa_" in e.key and ("_kernel" in e.key or "_mma" in e.key)]
     flash_ms = sum(e.self_device_time_total for e in flash) / 1e3
     wall, prof_wall = plain["wall_s"] * 1e3, prof_h["wall_s"] * 1e3
     print(f"[transformer-profile] gn_cg step (cg_iters {int(plain['cg_iters'])}, ls_evals "
@@ -1223,8 +1326,9 @@ def phase_serve_fullwidth(torch, params, prompts):
     (``_sdpa`` and the paged gather), and the paged path against the dense
     one. In bf16 each route is also held against the same step in f32 (the
     bf16 weights and caches upcast, plain route), and the comparisons are
-    repeated in f32 end to end. Then 8 decode steps are timed, profiled and
-    their host reads counted."""
+    repeated in f32 end to end. The prefill runs under torch.profiler (its
+    device time and the flash forward's share). Then 8 decode steps are
+    timed, profiled and their host reads counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from torch.utils._pytree import tree_map
@@ -1236,8 +1340,18 @@ def phase_serve_fullwidth(torch, params, prompts):
     cfg = get_config(QWEN2)
     max_len = SERVE_S + SERVE_GEN
     flash = build_model(cfg.replace(use_flash_attention=True), device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch.no_grad():
+            logits, cache = flash.prefill(params, {"tokens": torch.cat(prompts[:SERVE_B])},
+                                          max_len)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    fa_ms = sum(e.self_device_time_total for e in kern if "fa_forward" in e.key) / 1e3
+    print(f"[serve-profile] prefill ({SERVE_B} x {SERVE_S}): device busy {busy:.3f} ms; flash "
+          f"forward kernel {fa_ms:.3f} ms = {100 * fa_ms / max(busy, 1e-9):.2f}% of device "
+          f"time; {sum(e.count for e in kern)} device kernels", flush=True)
     with torch.no_grad():
-        logits, cache = flash.prefill(params, {"tokens": torch.cat(prompts[:SERVE_B])}, max_len)
         tok = logits[:, -1:].argmax(-1)
         pc = flash.init_cache_paged(SERVE_B, max_len, 1 + SERVE_B * (max_len // SERVE_PS + 1),
                                     SERVE_PS)
@@ -1580,7 +1694,7 @@ def phase_hybrid_serve(torch, ops):
     print(f"[hybrid-profile] prefill ({HYB_B} x {HYB_S}): wall {1e3 * prof_s:.1f} ms profiled; "
           f"device busy {busy:.3f} ms = {100 * busy / (1e3 * prof_s):.2f}%; ssd_intra kernel "
           f"{share('ssd_intra_kernel'):.3f} ms, flash forward kernel "
-          f"{share('fa_forward_kernel'):.3f} ms; {sum(e.count for e in kern)} device kernels",
+          f"{share('fa_forward'):.3f} ms; {sum(e.count for e in kern)} device kernels",
           flush=True)
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[hybrid-profile] prefill {e.self_device_time_total / 1e3:9.3f} ms  "
@@ -1731,9 +1845,11 @@ def main() -> None:
     from repro_torch.kernels import cg_fused, ops, ref
 
     card = card_line()
+    ptxas = start_ptxas()
     cg_fused.extension()
     print(f"[build] cg_fused ({', '.join(s.name for s in cg_fused.SOURCES)}) in "
           f"{cg_fused.build_seconds:.1f} s", flush=True)
+    print_ptxas(ptxas)
     print(f"[card] {card}", flush=True)
 
     records = phase_kernels(torch, cg_fused, ref)

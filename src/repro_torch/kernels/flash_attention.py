@@ -5,8 +5,9 @@ Twins of the Pallas kernels in ``repro/kernels/flash_attention.py``:
 ``flash_attention_dkv`` (per-q-head dk_h, dv_h in f32) and
 ``flash_attention_jvp`` (g, t in f32), with the reference's layout: q
 (B, Sq, H, hd), k/v (B, Sk, KV, hd), lse and Δ (B, H, Sq), bias (B|1, Sq, Sk)
-f32. They are built into the port's one extension (``cg_fused.extension``)
-at first use. Every wrapper checks device, dtype, shape, head dim and
+f32. In bf16 the forward and dK/dV run on the tensor cores, dQ and the JVP
+in f32 FFMA; in f32 all four run in FFMA. They are built into the port's one
+extension (``cg_fused.extension``) at first use. Every wrapper checks device, dtype, shape, head dim and
 contiguity and raises on anything else; it never falls back to the plain
 version.
 """
@@ -16,7 +17,8 @@ import torch
 
 from .cg_fused import extension
 
-MAX_HEAD_DIM = 128  # head dims: multiples of 8 up to this (csrc: register widths 32, 64, 128)
+MAX_HEAD_DIM = 128  # head dims: multiples of 8 up to this (csrc: FFMA widths 32, 64, 128;
+                    # tensor-core widths the multiples of 16)
 DTYPES = (torch.float32, torch.bfloat16)
 
 

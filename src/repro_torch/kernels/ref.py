@@ -15,8 +15,12 @@ The attention versions keep the reference's layout at every function: q
 (B, Sq, H, hd), k/v (B, Sk, KV, hd), lse and Δ (B, H, Sq), the optional
 additive bias (B|1, Sq, Sk) f32. They compute in f32 from the inputs as
 given (in float64 from float64 inputs, for an exact yardstick) and return
-the kernels' output types. Their mask is their own copy
-(``_ref_mask``), independent of ``flash_ad.position_mask``.
+the kernels' output types. Like the reference's kernels, they round the
+softmax weights to the input type before the second product (P in the
+forward, dS in dQ, P and dS in dK/dV, R = P∘Ṡ and P in the JVP; a no-op
+for f32 and float64) and sum l and t from the unrounded values. Their mask
+is their own copy (``_ref_mask``), independent of
+``flash_ad.position_mask``.
 """
 from __future__ import annotations
 
@@ -77,6 +81,14 @@ def _up(t):
     return t if t.dtype == torch.float64 else t.float()
 
 
+def _as(w, like):
+    """``w`` rounded to ``like``'s type and widened back, as the reference's
+    ``.astype`` before a product; f32 and float64 are left as they are."""
+    if like.dtype in (torch.float32, torch.float64):
+        return w
+    return w.to(like.dtype).to(w.dtype)
+
+
 def _scale(scale, hd):
     return float(scale if scale is not None else 1.0 / hd ** 0.5)
 
@@ -119,7 +131,8 @@ def flash_attention_fwd_ref(q, k, v, *, causal=True, window=None, valid_len=None
     l = p.sum(dim=-1)
     norm = torch.where(l <= 0.0, torch.ones_like(l), l)
     lse = m_safe + torch.log(norm)
-    out = torch.einsum("bkgst,btkh->bskgh", p / norm[..., None], _up(v))
+    acc = torch.einsum("bkgst,btkh->bkgsh", _as(p, v), _up(v)) / norm[..., None]
+    out = acc.permute(0, 3, 1, 2, 4)
     return out.reshape(B, S, H, hd).to(q.dtype), lse.reshape(B, H, S)
 
 
@@ -146,7 +159,7 @@ def flash_attention_dq_ref(q, k, v, do, lse, delta, *, causal=True, window=None,
     sc = _scale(scale, hd)
     kw = dict(causal=causal, window=window, valid_len=valid_len, bias=bias)
     _, ds, _ = _grad_terms(q, k, v, do, lse, delta, sc, kw)
-    dq = sc * torch.einsum("bkgst,btkh->bskgh", ds, _up(k))
+    dq = sc * torch.einsum("bkgst,btkh->bskgh", _as(ds, k), _up(k))
     return dq.reshape(B, S, H, hd).to(q.dtype)
 
 
@@ -160,8 +173,8 @@ def flash_attention_dkv_ref(q, k, v, do, lse, delta, *, causal=True, window=None
     kw = dict(causal=causal, window=window, valid_len=valid_len, bias=bias)
     p, ds, dog = _grad_terms(q, k, v, do, lse, delta, sc, kw)
     qg = _up(q).reshape(B, S, KV, H // KV, hd)
-    dk = sc * torch.einsum("bkgst,bskgh->btkgh", ds, qg)
-    dv = torch.einsum("bkgst,bskgh->btkgh", p, dog)
+    dk = sc * torch.einsum("bkgst,bskgh->btkgh", _as(ds, q), qg)
+    dv = torch.einsum("bkgst,bskgh->btkgh", _as(p, do), dog)
     return dk.reshape(B, T, H, hd), dv.reshape(B, T, H, hd)
 
 
@@ -181,8 +194,8 @@ def flash_attention_jvp_ref(q, k, v, qt, kt, vt, lse, *, causal=True, window=Non
     st = sc * (torch.einsum("bskgh,btkh->bkgst", qtg, _up(k))
                + torch.einsum("bskgh,btkh->bkgst", qg, _up(kt)))
     r = p * st
-    g = (torch.einsum("bkgst,btkh->bskgh", r, _up(v))
-         + torch.einsum("bkgst,btkh->bskgh", p, _up(vt)))
+    g = (torch.einsum("bkgst,btkh->bskgh", _as(r, v), _up(v))
+         + torch.einsum("bkgst,btkh->bskgh", _as(p, vt), _up(vt)))
     t = r.sum(dim=-1)
     return g.reshape(B, S, H, hd), t.reshape(B, H, S)
 

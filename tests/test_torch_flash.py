@@ -3,7 +3,10 @@
 * The plain versions (``repro_torch.kernels.ref``, what ``ops`` runs for
   CPU tensors) against the Pallas kernels in interpret mode, as
   ``tests/test_kernels.py`` runs them: forward (o, lse), dQ, dK/dV per
-  q-head and JVP (g, t), f32, within 1e-5 of the largest magnitude.
+  q-head and JVP (g, t), f32, within 1e-5 of the largest magnitude; and
+  with bf16 inputs, where both round P and dS (the JVP's R and P) to bf16
+  before the second product: f32 outputs within 1e-4, bf16 outputs within
+  4e-3 (half a bf16 ulp at the largest magnitude).
 * The two autograd Functions of ``kernels.flash_ad``: gradient, forward-mode
   JVP, the backward of the backward in dO (the GN product's J·v), and the
   second-order route under ``second_order_tangents()``.
@@ -11,6 +14,7 @@
 """
 import functools
 
+import ml_dtypes
 import numpy as np
 import pytest
 
@@ -50,11 +54,19 @@ CASES = {
     "hd96": (1, 128, 4, 2, 96, True, None, None, False),
 }
 KERNELS = ("fwd", "dq", "dkv", "jvp")
+# bf16 cases, and the tolerance of each output type. In "bias" and
+# "noncausal" (not here) the two sides' f32 scores differ in summation order
+# by enough to round a few P entries to neighbouring bf16 values, each moving
+# an element of dv_h by up to p·2⁻⁸·|dO|: dk_h and dv_h agree there within
+# 2.3e-4 (1.7e-3 to 2.1e-3 without the rounding).
+BF16_CASES = ("gqa", "hd112", "hd96", "ragged", "window")
+BF16_TOL = {torch.bfloat16: 4e-3, torch.float32: 1e-4}
 
 
 @functools.lru_cache(maxsize=None)
-def _case(name):
-    """Inputs from a seed, and every output of the Pallas kernels on them."""
+def _case(name, dtype="float32"):
+    """Inputs from a seed (rounded to bf16 for ``dtype`` "bfloat16"), and
+    every output of the Pallas kernels on them."""
     B, S, H, KV, hd, causal, window, valid_len, with_bias = CASES[name]
     rng = np.random.default_rng(sorted(CASES).index(name))
     a = lambda *s: rng.standard_normal(s).astype(np.float32)
@@ -63,6 +75,8 @@ def _case(name):
     if valid_len is not None:
         for n in x:
             x[n][:, valid_len:] = 0.0
+    if dtype == "bfloat16":
+        x = {n: t.astype(ml_dtypes.bfloat16) for n, t in x.items()}
     kw = dict(causal=causal, window=window, valid_len=valid_len, bias=None)
     if with_bias:
         bias = np.zeros((1, S, S), np.float32)
@@ -72,7 +86,8 @@ def _case(name):
     jkw = dict(kw, blk_q=128, blk_k=128, interpret=True,
                bias=None if kw["bias"] is None else jnp.asarray(kw["bias"]))
     o, lse = jfa.flash_attention_fwd(x["q"], x["k"], x["v"], **jkw)
-    delta = np.einsum("bshd,bshd->bhs", np.asarray(o), x["do"]).astype(np.float32)
+    delta = np.einsum("bshd,bshd->bhs", np.asarray(o, np.float32),
+                      x["do"].astype(np.float32)).astype(np.float32)
     out = {
         "fwd": (o, lse),
         "dq": (jfa.flash_attention_dq(x["q"], x["k"], x["v"], x["do"], lse, delta, **jkw),),
@@ -85,7 +100,10 @@ def _case(name):
 
 
 def _t(a):
-    return torch.tensor(np.asarray(a))
+    a = np.asarray(a)
+    if a.dtype == ml_dtypes.bfloat16:
+        return torch.tensor(a.astype(np.float32)).bfloat16()  # exact
+    return torch.tensor(a)
 
 
 def _assert_close(got, want, tol=TOL):
@@ -96,10 +114,9 @@ def _assert_close(got, want, tol=TOL):
         assert err <= tol, err
 
 
-@pytest.mark.parametrize("kernel", KERNELS)
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_plain_version_matches_pallas_kernel(case, kernel):
-    x, kw, lse, delta, want = _case(case)
+def _plain_and_pallas(case, kernel, dtype="float32"):
+    """(the plain version's outputs through ``ops``, the Pallas kernel's)."""
+    x, kw, lse, delta, want = _case(case, dtype)
     t = {n: _t(v) for n, v in x.items()}
     tkw = dict(kw, bias=None if kw["bias"] is None else _t(kw["bias"]))
     L, D = _t(lse), _t(delta)
@@ -110,8 +127,26 @@ def test_plain_version_matches_pallas_kernel(case, kernel):
         "jvp": lambda: ops.flash_attention_jvp(t["q"], t["k"], t["v"], t["qt"], t["kt"],
                                                t["vt"], L, **tkw),
     }[kernel]()
-    _assert_close(got, want[kernel])
     assert ops.LAUNCHES[f"flash_attention_{kernel}"] == 0  # the CPU runs no kernel
+    return got, want[kernel]
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_version_matches_pallas_kernel(case, kernel):
+    _assert_close(*_plain_and_pallas(case, kernel))
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("case", BF16_CASES)
+def test_plain_version_matches_pallas_kernel_in_bf16(case, kernel):
+    """bf16 inputs: the plain versions round the weights where the
+    reference's kernels round them (1.1e-3 to 2.3e-3 apart in dk_h, dv_h
+    and g without that), and return the kernels' output types."""
+    got, want = _plain_and_pallas(case, kernel, "bfloat16")
+    for g, w in zip(got, want):
+        assert g.dtype == (torch.bfloat16 if w.dtype == ml_dtypes.bfloat16 else torch.float32)
+        _assert_close([g], [w], BF16_TOL[g.dtype])
 
 
 # ------------------------------------------------------- the Functions --
