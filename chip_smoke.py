@@ -8,9 +8,11 @@ Phases, each printed on lines of its own; any failure exits non-zero:
 1. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
              (``cg_fused.cu``, ``flash_attention.cu``, ``flash_decode.cu`` and
              ``ssd_scan.cu``, one extension); beside it, ``nvcc -Xptxas -v``
-             on ``flash_attention.cu`` alone prints the registers, spills and
-             shared memory of each instance of the two tensor-core kernels;
-             print the build time and the card's name and power limit.
+             on ``flash_attention.cu`` and on ``flash_decode.cu`` prints the
+             registers, spills and shared memory of each instance of the
+             three tensor-core flash kernels (forward, dQ, dK/dV) and of the
+             one-launch dense decode kernel (a spill in dQ fails); print the
+             build time and the card's name and power limit.
 2. kernels — each Krylov kernel against its plain PyTorch version on the card
              at n = 1,722,293 (the TIMIT MLP's parameter count) and n = 65,537:
              relative error (≤ 1e-5), time with L2 cold and warm, the plain
@@ -76,13 +78,15 @@ Phases, each printed on lines of its own; any failure exits non-zero:
              ``hf_step`` (λ 100, cg_tol 0) on the card against the CPU's
              plain versions (parameters within 1e-4).
 10. decode — the split-K decode kernels (``flash_decode``, dense rolling
-             cache; ``flash_decode_paged``, page pool) against their plain
-             versions on ``DECODE_CASES`` and ``PAGED_CASES`` in f32 and bf16:
-             relative error of max|plain| ≤ 1e-5 (f32) and ≤ 1e-2 (bf16), the
-             same against float64, the return_stats (m, l) within 1e-5, idle
-             rows exactly (0, NEG_INF, 0); times with L2 cold and warm, the
-             plain version's, ``scaled_dot_product_attention`` as the dense
-             kernel's yardstick, and the byte bound of the live K/V.
+             cache, one launch that merges its splits; ``flash_decode_paged``,
+             page pool) against their plain versions on ``DECODE_CASES`` and
+             ``PAGED_CASES`` in f32 and bf16: relative error of max|plain|
+             ≤ 1e-5 (f32) and ≤ 1e-2 (bf16), the same against float64 and,
+             for the dense kernel, against the plain split-and-merge on the
+             inputs in their own type; the return_stats (m, l) within 1e-5,
+             idle rows exactly (0, NEG_INF, 0); times with L2 cold and warm,
+             the plain version's, ``scaled_dot_product_attention`` as the
+             dense kernel's yardstick, and the byte bound of the live K/V.
 11. serve   — the serving main path through ``repro_torch.launch.serve``:
              Qwen2-1.5B at full width and depth (1,543,910,912 parameters,
              bf16, random weights from seed 0), flash attention. Batch-at-once
@@ -97,7 +101,8 @@ Phases, each printed on lines of its own; any failure exits non-zero:
              prefilled state, the first decode step's logits through the
              kernels against the plain route and paged against dense (within
              1e-2 of max|logit|), the prefill profiled, and 8 decode steps
-             timed and profiled.
+             timed and profiled (the dense decode kernel's launches a step
+             must be 28, one a layer).
 12. serve checks — qwen2-1.5b's smoke config (hd 32) in f32 with flash on
              the card: continuous batching (3 requests on 2 slots) gives
              batch-at-once's tokens, the card gives the CPU's tokens for both,
@@ -124,7 +129,8 @@ Phases, each printed on lines of its own; any failure exits non-zero:
              8 x (896 + 128): prefill, decode, tok/s, peak memory, launches
              (ssd_intra 81, flash forward 13, flash_decode 13 x 127), zeroed
              just before and read just after; then a prefill profiled and a
-             decode step timed and profiled.
+             decode step timed and profiled (the dense decode kernel's
+             launches a step must be 13, one an attention block).
 16. hybrid check — at full width from 2 prompts, in f32 and bf16, the
              kernel route against the plain route (prefill logits, final
              Mamba states, first decode logits): f32 within 1e-4, bf16 no
@@ -185,9 +191,14 @@ def card_line() -> str:
 
 
 # ----------------------------------------------------------------- build --
+PTXAS_SOURCES = ("flash_attention.cu", "flash_decode.cu")
+PTXAS_KERNELS = ("fa_forward_mma", "fa_dq_mma", "fa_dkv_mma", "fd_dense_kernel")
+
+
 def start_ptxas():
-    """``nvcc -Xptxas -v`` on ``flash_attention.cu`` alone (plain C, no
-    PyTorch headers: seconds), started beside the extension's build."""
+    """``nvcc -Xptxas -v`` on ``flash_attention.cu`` and on ``flash_decode.cu``
+    (plain C, no PyTorch headers: seconds each), started together beside the
+    extension's build."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     from repro_torch.kernels import cg_fused
@@ -195,47 +206,72 @@ def start_ptxas():
     if CUDA_HOME is None:
         fail("no CUDA toolkit found (CUDA_HOME)")
     cg_fused.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = next(s for s in cg_fused.SOURCES if s.name == "flash_attention.cu")
-    return subprocess.Popen(
-        [str(Path(CUDA_HOME) / "bin" / "nvcc"), *cg_fused.CUDA_FLAGS,
-         "-Xptxas", "-v", "-c", str(src), "-o", str(cg_fused.BUILD_DIR / "fa_ptxas.o")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    procs = []
+    for name in PTXAS_SOURCES:
+        src = next(s for s in cg_fused.SOURCES if s.name == name)
+        procs.append((name, subprocess.Popen(
+            [str(Path(CUDA_HOME) / "bin" / "nvcc"), *cg_fused.CUDA_FLAGS,
+             "-Xptxas", "-v", "-c", str(src),
+             "-o", str(cg_fused.BUILD_DIR / f"{src.stem}_ptxas.o")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    return procs
 
 
-def print_ptxas(proc):
-    """Registers, spills and shared memory of each instance of the two
-    tensor-core flash kernels (the dynamic shared memory is the launcher's
-    formula: (64 + 4·64)·(HDP + 8)·2 B forward, (128 + 4·BQ)·(HDP + 8)·2 + 16·BQ
-    B dK/dV)."""
-    out, _ = proc.communicate(timeout=900)
-    if proc.returncode != 0:
-        fail(f"nvcc -Xptxas -v on flash_attention.cu failed:\n{out[-3000:]}")
-    func, frame, seen = None, None, set()
-    for line in out.splitlines():
-        m = re.search(r"(?:Compiling entry function '|Function properties for )([\w]+)", line)
-        if m:
-            func = m.group(1)
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m:
-            frame = tuple(int(x) for x in m.groups())
-            continue
-        m = re.search(r"Used (\d+) registers", line)
-        k = re.search(r"(fa_forward_mma|fa_dkv_mma)I((?:Li\d+E)+)E", func or "")
-        if not (m and k):
-            continue
-        args = [int(x) for x in re.findall(r"Li(\d+)E", k.group(2))]
-        ld = args[0] + 8
-        smem = (2 * (64 + 4 * 64) * ld if k.group(1) == "fa_forward_mma"
-                else 2 * (128 + 4 * args[1]) * ld + 16 * args[1])
-        stack, st, lo = frame or (None, None, None)
-        print(f"[build] ptxas {k.group(1)}<{', '.join(map(str, args))}>: {m.group(1)} "
-              f"registers, spill stores {st} B, spill loads {lo} B, stack {stack} B, "
-              f"dynamic shared memory {smem} B", flush=True)
-        seen.add(k.group(1))
-    if seen != {"fa_forward_mma", "fa_dkv_mma"}:
-        fail(f"ptxas reported no tensor-core flash kernel: {sorted(seen)}\n{out[-2000:]}")
+def _smem_bytes(kernel, args):
+    """Dynamic shared memory of one block, the launchers' formulas: (64 +
+    4·64)·(HDP + 8)·2 B forward, (128 + 4·BK)·(HDP + 8)·2 B dQ, that + 16·BK
+    B dK/dV; the dense decode's at one round of its ring (``DenseSmem``)."""
+    if kernel == "fd_dense_kernel":
+        esz, hd, rpw, wk = args
+        rows = 4 // wk * rpw
+        return (esz * 2 * 4 * 32 * hd
+                + 4 * (rows * hd + 4 * rpw * 32 + 4 * 32 + 2 * wk * rows + 2 * rows) + 4 * 4)
+    ld = args[0] + 8
+    if kernel == "fa_forward_mma":
+        return 2 * (64 + 4 * 64) * ld
+    return 2 * (128 + 4 * args[1]) * ld + (16 * args[1] if kernel == "fa_dkv_mma" else 0)
+
+
+def print_ptxas(procs):
+    """Registers, spills and shared memory of each instance of the three
+    tensor-core flash kernels and of the dense decode kernel; fails if one
+    is missing, or if an instance of ``fa_dq_mma`` spills."""
+    seen = set()
+    for name, proc in procs:
+        out, _ = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            fail(f"nvcc -Xptxas -v on {name} failed:\n{out[-3000:]}")
+        func, frame = None, None
+        for line in out.splitlines():
+            m = re.search(r"(?:Compiling entry function '|Function properties for )([\w]+)",
+                          line)
+            if m:
+                func = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m:
+                frame = tuple(int(x) for x in m.groups())
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            k = re.search(r"(fa_forward_mma|fa_dq_mma|fa_dkv_mma|fd_dense_kernel)I"
+                          r"(13__nv_bfloat16|f)?((?:Li\d+E)+)E", func or "")
+            if not (m and k):
+                continue
+            args = [int(x) for x in re.findall(r"Li(\d+)E", k.group(3))]
+            if k.group(2):
+                args = [2 if k.group(2) == "13__nv_bfloat16" else 4] + args
+            stack, st, lo = frame or (None, None, None)
+            tmpl = ("bf16" if args[0] == 2 else "f32") if k.group(2) else None
+            shown = ", ".join([tmpl] * bool(tmpl) + [str(a) for a in args[bool(tmpl):]])
+            print(f"[build] ptxas {k.group(1)}<{shown}>: {m.group(1)} registers, spill stores "
+                  f"{st} B, spill loads {lo} B, stack {stack} B, dynamic shared memory "
+                  f"{_smem_bytes(k.group(1), args)} B", flush=True)
+            seen.add(k.group(1))
+            if k.group(1) == "fa_dq_mma" and (st or lo):
+                fail(f"fa_dq_mma<{shown}> spills: {st} B stored, {lo} B loaded")
+    if seen != set(PTXAS_KERNELS):
+        fail(f"ptxas reported {sorted(seen)}, not every kernel of {PTXAS_KERNELS}")
 
 
 # ---------------------------------------------------------------- timing --
@@ -1060,13 +1096,20 @@ def phase_profile_sstep(torch, model, batch, hvp_batch):
 # the reference's FD_CASES (tests/test_flash_decode.py) of head dim >= 32 (the
 # ragged ones with their last row fully masked, an idle slot), and the
 # serving slice's shape: Qwen2-1.5B's 12 heads over 2 kv heads at hd 128, its
-# 896 + 128 slots, every slot live (the last decode step).
+# 896 + 128 slots, every slot live (the last decode step). "fd5-long" gives
+# the dense kernel splits of 512 keys (4 rounds of its ring: two rounds in
+# flight in bf16, one at a time in f32) behind a window that masks the first
+# splits wholly; "fd6-g12" and "fd7-g32" give it groups of 12 and 32 query
+# heads a kv head (two and four groups of rows sharing each key tile).
 DECODE_CASES = (
     ("fd0", 1, 128, 2, 2, 32, 64, 2, None, False),
     ("fd1-gqa", 2, 256, 4, 2, 32, 64, 4, None, False),
     ("fd2-window", 2, 300, 4, 1, 32, 64, 4, 90, False),
     ("fd3-ragged", 3, 200, 4, 2, 32, 64, 8, None, True),
     ("fd4-all", 2, 192, 8, 2, 64, 64, 3, 64, True),
+    ("fd5-long", 2, 2048, 8, 2, 128, 128, 4, 700, False),
+    ("fd6-g12", 2, 320, 24, 2, 64, 64, 8, 200, False),
+    ("fd7-g32", 2, 256, 32, 1, 32, 128, 8, None, True),
     ("slice", 16, 1024, 12, 2, 128, 128, 8, None, False),
 )
 # Paged cases: (tag, B, P, ps, maxp, H, KV, hd, window, seq_lens), the
@@ -1103,6 +1146,7 @@ def _dense_case(torch, case, dtype, gen):
     live = int((bias > fd.NEG_INF / 2).expand(B, W).sum())
     kv_row = KV * hd * q.element_size()
     return dict(args=(q, k, v, bias), kw=dict(blk_k=blk_k, n_splits=n_splits),
+                # the one launch that returns the merged (o, m, l)
                 raw=lambda: fd.extension().flash_decode(q, k, v, bias, ns, span, hd ** -0.5),
                 n_bytes=q.numel() * q.element_size() + 2 * live * kv_row + bias.numel() * 4)
 
@@ -1158,9 +1202,11 @@ def phase_decode(torch, reps_cold=20, reps_warm=100, dense_cases=DECODE_CASES,
     """The two decode kernels against their plain versions on every case, f32
     and bf16: the output against the plain version in f32 and in float64,
     the return_stats (m, l) against the plain (m, l), and idle rows exactly
-    (0, NEG_INF, 0). ``ms`` times the wrapper (the kernel and the torch
-    merge of the splits), ``kernel_ms`` the kernel's launch alone. Returns
-    the records of the slice's cases in bf16."""
+    (0, NEG_INF, 0); the dense kernel also against the plain split-and-merge
+    (``flash_decode_split_ref``) on the inputs in their own type, under the
+    same gates. ``ms`` times the wrapper (dense: its one launch; paged: the
+    kernel and the torch merge of the pages), ``kernel_ms`` the binding's
+    launch alone. Returns the records of the slice's cases in bf16."""
     from repro_torch.kernels import flash_decode as fd, ref
 
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -1189,14 +1235,22 @@ def phase_decode(torch, reps_cold=20, reps_warm=100, dense_cases=DECODE_CASES,
                     float((got[2] - want[2]).abs().max() / want[2].abs().max()))
                 idle_ok = bool((got[1][~live] <= fd.NEG_INF / 2).all()
                                and (got[2][~live] == 0).all() and (got[0][~live] == 0).all())
+                split_rel = split_stats = None
+                if name == "flash_decode":  # the plain split-and-merge, inputs as given
+                    split = ref.flash_decode_split_ref(*args, return_stats=True, **kw)
+                    split_rel = _rel(got[:1], split[:1])[0]
+                    split_stats = max(
+                        float((got[1] - split[1])[live].abs().max() / split[1][live].abs().max()),
+                        float((got[2] - split[2]).abs().max() / split[2].abs().max()))
                 b_ms, b_by = bound_ms(x["n_bytes"] + got[0].numel() * got[0].element_size(), 0)
                 library = _decode_library(torch, x) if name == "flash_decode" else None
                 rec = {
                     "case": case[0], "dtype": dname, "rel_err": rel, "rel_err_f64": rel64,
                     "stats_rel_err": stats_rel, "idle_rows": int((~live).sum()),
+                    "rel_err_split": split_rel, "stats_rel_err_split": split_stats,
                     "max_abs_err": abs_err,
-                    # the wrapper enqueues ~10 launches from Python: a 2M-cycle
-                    # (~1 ms) sleep covers that, as 200k cycles may not
+                    # the paged wrapper enqueues ~10 launches from Python: a
+                    # 2M-cycle (~1 ms) sleep covers that, as 200k cycles may not
                     "ms": time_cold(torch, kern, flush, reps_cold, 2_000_000),
                     "ms_l2_warm": time_warm(torch, kern, reps_warm),
                     "kernel_ms": time_cold(torch, x["raw"], flush, reps_cold),
@@ -1209,15 +1263,25 @@ def phase_decode(torch, reps_cold=20, reps_warm=100, dense_cases=DECODE_CASES,
                 }
                 print(f"[{label}] {name}: {json.dumps(rec)}", flush=True)
                 tol = DECODE_TOL[dname]
-                if not (rel <= tol and rel64 <= tol and stats_rel <= TOL and idle_ok):
+                if not (max(rel, rel64, split_rel or 0.0) <= tol
+                        and max(stats_rel, split_stats or 0.0) <= TOL and idle_ok):
                     fail(f"{name} on {case[0]} {dname}: relative error {rel} (float64 "
-                         f"{rel64}), stats {stats_rel}, idle rows right: {idle_ok}")
+                         f"{rel64}, split-and-merge {split_rel}), stats {stats_rel} "
+                         f"(split-and-merge {split_stats}), idle rows right: {idle_ok}")
                 if case[0] == "slice" and dtype == torch.bfloat16:
                     records[name] = rec
                 del x
     del flush
     torch.cuda.empty_cache()
     return records
+
+
+def _decode_kernel_share(kern, steps):
+    """(ms, launches) a step of the dense decode kernel in a profile of
+    ``steps`` decode steps."""
+    fdk = [e for e in kern if "fd_dense_kernel" in e.key]
+    return (sum(e.self_device_time_total for e in fdk) / 1e3 / steps,
+            sum(e.count for e in fdk) / steps)
 
 
 def _serve_requests(torch, cfg):
@@ -1417,16 +1481,18 @@ def phase_serve_fullwidth(torch, params, prompts):
         prof_ms = steps(SERVE_S + 13)
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kern) / 1e3 / 8
-    fdk = [e for e in kern if "fd_kernel" in e.key]
-    fd_ms = sum(e.self_device_time_total for e in fdk) / 1e3 / 8
+    fd_ms, fd_n = _decode_kernel_share(kern, 8)
     print(f"[serve-profile] decode step ({SERVE_B} x 1 token, {cfg.n_layers} layers): wall "
           f"{step_ms:.3f} ms unprofiled, {prof_ms:.3f} ms profiled; device busy {busy:.3f} ms = "
           f"{100 * busy / step_ms:.2f}% of the unprofiled wall; flash_decode kernel "
-          f"{fd_ms:.4f} ms = {100 * fd_ms / max(busy, 1e-9):.2f}% of device time; "
+          f"{fd_ms:.4f} ms = {100 * fd_ms / max(busy, 1e-9):.2f}% of device time in {fd_n:g} "
+          f"launches; "
           f"{sum(e.count for e in kern) / 8:.0f} device kernels and {reads} host reads a step",
           flush=True)
     if busy <= 0:
         fail("the profiler saw no device time in the decode steps")
+    if fd_n != cfg.n_layers:
+        fail(f"{fd_n} dense decode launches a step, not one per layer ({cfg.n_layers})")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"[serve-profile] {e.self_device_time_total / 1e3 / 8:9.4f} ms/step  "
               f"x{e.count // 8:<4d} {e.key[:90]}", flush=True)
@@ -1721,14 +1787,18 @@ def phase_hybrid_serve(torch, ops):
         prof_ms = steps(HYB_S + 11)
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kern) / 1e3 / 8
+    fd_ms, fd_n = _decode_kernel_share(kern, 8)
     print(f"[hybrid-profile] decode step ({HYB_B} x 1 token, {cfg.n_layers} Mamba2 layers + "
           f"{hybrid_layout(cfg)[0]} shared attention blocks): wall {step_ms:.3f} ms "
           f"unprofiled, {prof_ms:.3f} ms profiled; device busy {busy:.3f} ms = "
-          f"{100 * busy / step_ms:.2f}% of the unprofiled wall; "
+          f"{100 * busy / step_ms:.2f}% of the unprofiled wall; flash_decode kernel "
+          f"{fd_ms:.4f} ms in {fd_n:g} launches; "
           f"{sum(e.count for e in kern) / 8:.0f} device kernels and {reads} host reads a step",
           flush=True)
     if busy <= 0:
         fail("the profiler saw no device time in the hybrid decode steps")
+    if fd_n != hybrid_layout(cfg)[0]:
+        fail(f"{fd_n} dense decode launches a step, not one per attention block")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"[hybrid-profile] {e.self_device_time_total / 1e3 / 8:9.4f} ms/step  "
               f"x{e.count // 8:<4d} {e.key[:90]}", flush=True)

@@ -344,6 +344,7 @@ FdArgs fd_args(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
   return a;
 }
 
+// Per-page (o, m, l) of the paged kernel.
 std::vector<at::Tensor> fd_outputs(FdArgs& a, const at::Tensor& q) {
   const int64_t G = a.H / a.KV;
   auto o = at::empty({a.B, a.KV, a.ns, G, a.hd}, q.options());
@@ -358,8 +359,9 @@ std::vector<at::Tensor> fd_outputs(FdArgs& a, const at::Tensor& q) {
 
 }  // namespace
 
-// Per-split (o, m, l) of the dense split-K decode: n_splits splits of
-// ``span`` keys each over the (B, W, KV, hd) cache.
+// The merged (o (B, H, hd) in q's dtype, m (B, H), l (B, H)) of the dense
+// split-K decode, in one launch: n_splits (1 to 8) splits of ``span`` keys
+// each over the (B, W, KV, hd) cache, merged inside the kernel.
 std::vector<at::Tensor> flash_decode(const at::Tensor& q, const at::Tensor& k,
                                      const at::Tensor& v, const at::Tensor& bias,
                                      int64_t n_splits, int64_t span, double scale) {
@@ -369,6 +371,7 @@ std::vector<at::Tensor> flash_decode(const at::Tensor& q, const at::Tensor& k,
   TORCH_CHECK(W > 0 && span > 0 && n_splits > 0 && n_splits * span >= W &&
                   (n_splits - 1) * span < W,
               "splits of ", span, " keys x ", n_splits, " do not cover W = ", W);
+  TORCH_CHECK(n_splits <= 8, "the dense decode merges at most 8 splits, got ", n_splits);
   TORCH_CHECK((bias.size(0) == 1 || bias.size(0) == q.size(0)) && bias.size(1) == W,
               "bias must be (B|1, W)");
   a.W = (int)W;
@@ -376,9 +379,15 @@ std::vector<at::Tensor> flash_decode(const at::Tensor& q, const at::Tensor& k,
   a.ns = (int)n_splits;
   a.span = (int)span;
   c10::cuda::CUDAGuard guard(q.device());
-  auto out = fd_outputs(a, q);
+  auto o = at::empty_like(q);
+  auto opts = q.options().dtype(at::kFloat);
+  auto m = at::empty({a.B, a.H}, opts);
+  auto l = at::empty({a.B, a.H}, opts);
+  a.o = o.data_ptr();
+  a.m = m.data_ptr<float>();
+  a.l = l.data_ptr<float>();
   fa_check(fd_dense(&a, c10::cuda::getCurrentCUDAStream().stream()), "flash_decode");
-  return out;
+  return {o, m, l};
 }
 
 // Per-page (o, m, l) of the paged decode over the (P, ps, KV, hd) pools.
@@ -462,7 +471,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_dq", &flash_dq, "flash attention backward: dq");
   m.def("flash_dkv", &flash_dkv, "flash attention backward: per-q-head (dk, dv)");
   m.def("flash_jvp", &flash_jvp, "flash attention tangent pass: (g, t)");
-  m.def("flash_decode", &flash_decode, "split-K flash decode: per-split (o, m, l)");
+  m.def("flash_decode", &flash_decode, "split-K flash decode, splits merged: (o, m, l)");
   m.def("flash_decode_paged", &flash_decode_paged, "paged flash decode: per-page (o, m, l)");
   m.def("ssd_intra", &ssd_intra_fwd, "SSD intra-chunk: (y, S, g, l)");
   m.def("ssd_intra_smem_bytes", &ssd_intra_smem_bytes,

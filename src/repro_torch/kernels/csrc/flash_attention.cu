@@ -21,29 +21,31 @@
 // on operations at B 8, 16 heads), in f32 FFMA (67 TFLOP/s) the operations
 // bound. Two routes:
 //
-//   * bf16 forward and dK/dV: tensor-core tiles (fa_forward_mma,
-//     fa_dkv_mma), mma.sync.m16n8k16 with f32 accumulation, in the shape of
-//     FlashAttention-2. One block of 4 warps per (64 rows of its own side,
-//     h, b); each warp owns 16 rows. The other side's tiles (64 keys for
-//     the forward; 64 queries, 32 at head dims above 64, for dK/dV) come in
-//     bf16 by cp.async into a two-stage ring, the next tile in flight while
-//     the current one is computed, rows padded by 16 bytes so that ldmatrix
-//     hits 8 distinct bank groups. The head dim is the k-dimension of the
-//     score product and is padded with zero columns in shared memory to the
-//     next multiple of 16 (the template width HDP); every stride in memory
-//     is the true hd's. Scores stay in f32 C fragments; the mask and bias
-//     are applied per element only on tiles the mask cuts (tile_open), and
-//     the softmax statistics need only quad shuffles. The weights (P, and
-//     dS in dK/dV), rounded to bf16, go from the C fragments of one product
-//     straight into the A fragments of the next, never through shared
-//     memory; V, dO and Q are read as B operands with ldmatrix.trans.
-//     dK/dV forms Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ directly, so that Pᵀ and
-//     dSᵀ are its A operands, and keeps dK and dV in f32 registers.
-//     Blocks launch longest first (the tile index is the grid's slowest
-//     axis), which shortens the causal tail. Not yet: wgmma, TMA and warp
-//     specialisation (the producer warp, a deeper ring), which would reach
-//     the operation bound.
-//   * f32 (all four passes) and bf16 dQ and JVP: f32 FFMA from shared memory,
+//   * bf16 forward, dQ and dK/dV: tensor-core tiles (fa_forward_mma,
+//     fa_dq_mma, fa_dkv_mma), mma.sync.m16n8k16 with f32 accumulation, in
+//     the shape of FlashAttention-2. One block of 4 warps per (64 rows of
+//     its own side, h, b); each warp owns 16 rows. The other side's tiles
+//     (64 keys for the forward; 64 keys or queries for dQ and dK/dV, 32 at
+//     head dims above 64) come in bf16 by cp.async into a two-stage ring,
+//     the next tile in flight while the current one is computed, rows
+//     padded by 16 bytes so that ldmatrix hits 8 distinct bank groups. The
+//     head dim is the k-dimension of the score product and is padded with
+//     zero columns in shared memory to the next multiple of 16 (the
+//     template width HDP); every stride in memory is the true hd's. Scores
+//     stay in f32 C fragments; the mask and bias are applied per element
+//     only on tiles the mask cuts (tile_open), and the softmax statistics
+//     need only quad shuffles. The weights (P, and dS in dQ and dK/dV),
+//     rounded to bf16, go from the C fragments of one product straight into
+//     the A fragments of the next, never through shared memory; V, dO, Q
+//     and (in dQ) K are read as B operands with ldmatrix.trans. dQ forms
+//     S = Q·Kᵀ and dP = dO·Vᵀ with lse and Δ of the warp's rows in
+//     registers and keeps dQ in f32 registers; dK/dV forms Sᵀ = K·Qᵀ and
+//     dPᵀ = V·dOᵀ directly, so that Pᵀ and dSᵀ are its A operands, and
+//     keeps dK and dV in f32 registers. Blocks launch longest first (the
+//     tile index is the grid's slowest axis), which shortens the causal
+//     tail. Not yet: wgmma, TMA and warp specialisation (the producer warp,
+//     a deeper ring), which would reach the operation bound.
+//   * f32 (all four passes) and the bf16 JVP: f32 FFMA from shared memory,
 //     the simple and exact first form (TF32 would not hold the f32 1e-5
 //     gates). The TPU grid's sequential innermost axis becomes a loop inside
 //     one block, with the m/l/acc recurrence in f32 registers. One block per
@@ -153,9 +155,6 @@ __device__ __forceinline__ float4 load4(const bf16* p) {
   return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
                      __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
-
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(bf16* p, float x) { *p = __float2bfloat16(x); }
 
 // x rounded to T, as the reference's ``.astype(T)`` before a product.
 __device__ __forceinline__ float round_to(float x, const float*) { return x; }
@@ -300,7 +299,7 @@ __global__ void __launch_bounds__(kThreads) fa_forward_kernel(const FaArgs a) {
     const float norm = l[r] <= 0.f ? 1.f : l[r];
 #pragma unroll
     for (int c = 0; c < DPL; ++c)
-      if (lane + 32 * c < a.hd) store1(o + qp * hx.q_stride + lane + 32 * c, acc[r][c] / norm);
+      if (lane + 32 * c < a.hd) o[qp * hx.q_stride + lane + 32 * c] = acc[r][c] / norm;
     if (lane == 0) {
       const float m_fin = m[r] <= kNegInf / 2 ? 0.f : m[r];
       a.lse_out[((int64_t)b * a.H + h) * a.Sq + qp] = m_fin + logf(norm);
@@ -308,8 +307,8 @@ __global__ void __launch_bounds__(kThreads) fa_forward_kernel(const FaArgs a) {
   }
 }
 
-// ----------------------------------------------------- dQ (f32, bf16) --
-template <class T, int HD>
+// ---------------------------------------------------------- dQ (f32) --
+template <int HD>
 __global__ void __launch_bounds__(kThreads) fa_dq_kernel(const FaArgs a) {
   constexpr int LD = HD + 4, DPL = HD / 32;
   extern __shared__ float4 smem4[];
@@ -321,10 +320,11 @@ __global__ void __launch_bounds__(kThreads) fa_dq_kernel(const FaArgs a) {
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const Heads hx = heads(a, b, h, a.hd);
-  const T* k = static_cast<const T*>(a.k) + hx.k_off;
-  const T* v = static_cast<const T*>(a.v) + hx.k_off;
-  stage<T, HD>(sQ, static_cast<const T*>(a.q) + hx.q_off, hx.q_stride, q0, a.Sq, a.hd);
-  stage<T, HD>(sDO, static_cast<const T*>(a.dout) + hx.q_off, hx.q_stride, q0, a.Sq, a.hd);
+  const float* k = static_cast<const float*>(a.k) + hx.k_off;
+  const float* v = static_cast<const float*>(a.v) + hx.k_off;
+  stage<float, HD>(sQ, static_cast<const float*>(a.q) + hx.q_off, hx.q_stride, q0, a.Sq, a.hd);
+  stage<float, HD>(sDO, static_cast<const float*>(a.dout) + hx.q_off, hx.q_stride, q0, a.Sq,
+                   a.hd);
 
   float acc[kRows][DPL], lse[kRows], delta[kRows];
   const int64_t row0 = ((int64_t)b * a.H + h) * a.Sq;
@@ -341,8 +341,8 @@ __global__ void __launch_bounds__(kThreads) fa_dq_kernel(const FaArgs a) {
   key_range(a, q0, kTile, kb, ke);
   for (int k0 = kb; k0 < ke; k0 += kCols) {
     __syncthreads();
-    stage<T, HD>(sK, k, hx.k_stride, k0, a.Sk, a.hd);
-    stage<T, HD>(sV, v, hx.k_stride, k0, a.Sk, a.hd);
+    stage<float, HD>(sK, k, hx.k_stride, k0, a.Sk, a.hd);
+    stage<float, HD>(sV, v, hx.k_stride, k0, a.Sk, a.hd);
     __syncthreads();
     float s[kRows], dp[kRows];
     dots<HD>(s, sQ + warp * kRows * LD, sK + lane * LD);
@@ -353,20 +353,20 @@ __global__ void __launch_bounds__(kThreads) fa_dq_kernel(const FaArgs a) {
       const int qp = q0 + warp * kRows + r;
       const bool ok = allowed(a, qp, kp);
       const float p = ok ? expf(logit(a, s[r], b, qp, kp) - lse[r]) : 0.f;
-      wS[r * kCols + lane] = round_to(p * (dp[r] - delta[r]), k);  // dS in K's type
+      wS[r * kCols + lane] = p * (dp[r] - delta[r]);
     }
     __syncwarp();
     accumulate<HD>(acc, wS, sK, lane);  // dS K
   }
 
-  T* dq = static_cast<T*>(a.o) + hx.q_off;
+  float* dq = static_cast<float*>(a.o) + hx.q_off;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int qp = q0 + warp * kRows + r;
     if (qp >= a.Sq) continue;
 #pragma unroll
     for (int c = 0; c < DPL; ++c)
-      if (lane + 32 * c < a.hd) store1(dq + qp * hx.q_stride + lane + 32 * c, acc[r][c] * a.scale);
+      if (lane + 32 * c < a.hd) dq[qp * hx.q_stride + lane + 32 * c] = acc[r][c] * a.scale;
   }
 }
 
@@ -947,6 +947,147 @@ __global__ void __launch_bounds__(kThreads) fa_dkv_mma(const FaArgs a) {
   }
 }
 
+// S and dP of the warp's 16 query rows (r0 and r0 + 8) against keys [k0, k0
+// + 8 NT) → dS = P∘(dP − Δ) in dp, unrounded, with P = exp(logit − lse).
+template <bool MASKED, int NT>
+__device__ __forceinline__ void dq_weights(const float (&s)[NT][4], float (&dp)[NT][4],
+                                           const FaArgs& a, int b, int r0, int k0, int t,
+                                           const float (&lse)[2], const float (&delta)[2]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qp = r0 + (e >> 1) * 8, kp = k0 + nt * 8 + 2 * t + (e & 1);
+      const float x =
+          MASKED && !allowed(a, qp, kp) ? kNegInf : logit(a, s[nt][e], b, qp, kp);
+      dp[nt][e] = exp_f(x - lse[e >> 1]) * (dp[nt][e] - delta[e >> 1]);
+    }
+}
+
+// ----------------------------------------------------- dQ (bf16, MMA) --
+// S = Q·Kᵀ and dP = dO·Vᵀ with K and V as B operands read without .trans;
+// dQ += round(dS)·K with K read with .trans. Q and dO are staged once; the
+// warp's lse and Δ stay in registers.
+template <int HDP, int BK>
+__global__ void __launch_bounds__(kThreads) fa_dq_mma(const FaArgs a) {
+  constexpr int LD = HDP + 8, KS = HDP / 16, NT = BK / 8, DT = HDP / 8;
+  constexpr int kStage = BK * LD;
+  extern __shared__ float4 smem4[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem4);
+  bf16* sO = sQ + kBlockRows * LD;  // dO
+  bf16* sK = sO + kBlockRows * LD;  // two stages
+  bf16* sV = sK + 2 * kStage;       // two stages
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBlockRows;  // longest causal rows first
+  const int warp = threadIdx.x >> 5;
+  const Lanes ln(threadIdx.x & 31);
+  const Heads hx = heads(a, b, h, a.hd);
+  const bf16* k = static_cast<const bf16*>(a.k) + hx.k_off;
+  const bf16* v = static_cast<const bf16*>(a.v) + hx.k_off;
+  int kb, ke;
+  key_range(a, q0, kBlockRows, kb, ke);
+  stage_async<HDP, kBlockRows>(sQ, static_cast<const bf16*>(a.q) + hx.q_off, hx.q_stride, q0,
+                               a.Sq, a.hd);
+  stage_async<HDP, kBlockRows>(sO, static_cast<const bf16*>(a.dout) + hx.q_off, hx.q_stride,
+                               q0, a.Sq, a.hd);
+  if (kb < ke) {
+    stage_async<HDP, BK>(sK, k, hx.k_stride, kb, a.Sk, a.hd);
+    stage_async<HDP, BK>(sV, v, hx.k_stride, kb, a.Sk, a.hd);
+  }
+  cp_async_commit();
+
+  const int r0 = q0 + warp * 16 + ln.g;  // query of C elements 0, 1; r0 + 8 of 2, 3
+  const int64_t row0 = ((int64_t)b * a.H + h) * a.Sq;
+  float lse[2], delta[2], dq[DT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = r0 + 8 * i;
+    lse[i] = qp < a.Sq ? a.lse[row0 + qp] : 0.f;
+    delta[i] = qp < a.Sq ? a.delta[row0 + qp] : 0.f;
+  }
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[dt][e] = 0.f;
+  const bf16* wQ = sQ + (warp * 16 + ln.a_row) * LD + ln.a_col;
+  const bf16* wO = sO + (warp * 16 + ln.a_row) * LD + ln.a_col;
+  for (int it = 0, k0 = kb; k0 < ke; ++it, k0 += BK) {
+    cp_async_wait_all();  // tile it has landed
+    __syncthreads();      // and every warp is done with tile it - 1's stage
+    const int st = it & 1;
+    if (k0 + BK < ke) {
+      stage_async<HDP, BK>(sK + (st ^ 1) * kStage, k, hx.k_stride, k0 + BK, a.Sk, a.hd);
+      stage_async<HDP, BK>(sV + (st ^ 1) * kStage, v, hx.k_stride, k0 + BK, a.Sk, a.hd);
+    }
+    cp_async_commit();
+    const bf16* cK = sK + st * kStage;
+    const bf16* cV = sV + st * kStage;
+
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t qf[4], of[4];
+      ldsm4(qf, wQ + ks * 16);
+      ldsm4(of, wO + ks * 16);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t kf[4], vf[4];
+        ldsm4(kf, cK + (np * 16 + ln.b_row) * LD + ks * 16 + ln.b_col);
+        mma16816(s[2 * np], qf, kf[0], kf[1]);
+        mma16816(s[2 * np + 1], qf, kf[2], kf[3]);
+        ldsm4(vf, cV + (np * 16 + ln.b_row) * LD + ks * 16 + ln.b_col);
+        mma16816(dp[2 * np], of, vf[0], vf[1]);
+        mma16816(dp[2 * np + 1], of, vf[2], vf[3]);
+      }
+    }
+    if (tile_open(a, q0, kBlockRows, k0, BK))
+      dq_weights<false>(s, dp, a, b, r0, k0, ln.t, lse, delta);
+    else
+      dq_weights<true>(s, dp, a, b, r0, k0, ln.t, lse, delta);
+
+    // dQ += round(dS)·K
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) {
+      uint32_t da[4];
+      c_to_a(da, dp[2 * j], dp[2 * j + 1]);
+#pragma unroll
+      for (int dd = 0; dd < DT / 2; ++dd) {
+        uint32_t kf[4];
+        ldsm4_t(kf, cK + (j * 16 + ln.a_row) * LD + dd * 16 + ln.a_col);
+        mma16816(dq[2 * dd], da, kf[0], kf[1]);
+        mma16816(dq[2 * dd + 1], da, kf[2], kf[3]);
+      }
+    }
+  }
+  cp_async_wait_all();
+
+  // scale·dQ through the warp's own Q rows in shared memory (only this warp
+  // reads them), then out in 16-byte rows.
+  __syncwarp();
+  bf16* wD = sQ + warp * 16 * LD;
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+    const int c = dt * 8 + 2 * ln.t;
+    *reinterpret_cast<uint32_t*>(wD + ln.g * LD + c) =
+        pack_bf16(dq[dt][0] * a.scale, dq[dt][1] * a.scale);
+    *reinterpret_cast<uint32_t*>(wD + (ln.g + 8) * LD + c) =
+        pack_bf16(dq[dt][2] * a.scale, dq[dt][3] * a.scale);
+  }
+  __syncwarp();
+  bf16* dqg = static_cast<bf16*>(a.o) + hx.q_off;
+  const int CH = a.hd / 8, lane = threadIdx.x & 31;
+  for (int idx = lane; idx < 16 * CH; idx += 32) {
+    const int r = idx / CH, c = (idx - r * CH) * 8, qp = q0 + warp * 16 + r;
+    if (qp < a.Sq)
+      *reinterpret_cast<uint4*>(dqg + (int64_t)qp * hx.q_stride + c) =
+          *reinterpret_cast<const uint4*>(wD + r * LD + c);
+  }
+}
+
 // -------------------------------------------------------------- launch --
 enum Kind { kForward, kDq, kDkv, kJvp };
 
@@ -964,7 +1105,7 @@ int run(void (*kern)(const FaArgs), size_t smem, int own_rows, int tile, const F
   return (int)cudaGetLastError();
 }
 
-// The FFMA route: all four passes in f32, dQ and JVP in bf16.
+// The FFMA route: all four passes in f32, the JVP in bf16.
 template <class T, int HD>
 int launch_ffma(Kind kind, const FaArgs& a, cudaStream_t stream) {
   constexpr int LD = HD + 4;
@@ -972,7 +1113,7 @@ int launch_ffma(Kind kind, const FaArgs& a, cudaStream_t stream) {
   int own_rows = a.Sq, row_tiles = 2, other_tiles = 2, weights = 1;
   switch (kind) {
     case kDq:
-      kern = fa_dq_kernel<T, HD>;
+      if constexpr (std::is_same<T, float>::value) kern = fa_dq_kernel<HD>;
       break;
     case kJvp:
       kern = fa_jvp_kernel<T, HD>; other_tiles = 4; weights = 2;
@@ -1004,18 +1145,26 @@ int dispatch_ffma(Kind kind, const FaArgs& a, cudaStream_t stream) {
   return launch_ffma<T, 128>(kind, a, stream);
 }
 
-// The tensor-core route: bf16 forward and dK/dV at the head dim padded to
-// HDP, a multiple of 16.
+// The tensor-core route: bf16 forward, dQ and dK/dV at the head dim padded
+// to HDP, a multiple of 16. Above HDP 64 the other side's tiles are 32 rows
+// (dQ, or dK and dV, and the tile's scores in registers).
 template <int HDP>
 int launch_mma(Kind kind, const FaArgs& a, cudaStream_t stream) {
-  constexpr int LD = HDP + 8;
-  if (kind == kForward)
-    return run(fa_forward_mma<HDP>, sizeof(bf16) * (size_t)(kBlockRows + 4 * kKeyTile) * LD,
-               a.Sq, kBlockRows, a, stream, true);
-  constexpr int BQ = HDP > 64 ? 32 : 64;  // dK, dV and the tile's scores in registers
-  return run(fa_dkv_mma<HDP, BQ>,
-             sizeof(bf16) * (size_t)(2 * kBlockRows + 4 * BQ) * LD + sizeof(float) * 4 * BQ,
-             a.Sk, kBlockRows, a, stream, true);
+  constexpr int LD = HDP + 8, BT = HDP > 64 ? 32 : 64;
+  switch (kind) {
+    case kForward:
+      return run(fa_forward_mma<HDP>, sizeof(bf16) * (size_t)(kBlockRows + 4 * kKeyTile) * LD,
+                 a.Sq, kBlockRows, a, stream, true);
+    case kDq:
+      return run(fa_dq_mma<HDP, BT>, sizeof(bf16) * (size_t)(2 * kBlockRows + 4 * BT) * LD,
+                 a.Sq, kBlockRows, a, stream, true);
+    case kDkv:
+      return run(fa_dkv_mma<HDP, BT>,
+                 sizeof(bf16) * (size_t)(2 * kBlockRows + 4 * BT) * LD + sizeof(float) * 4 * BT,
+                 a.Sk, kBlockRows, a, stream, true);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 int dispatch_mma(Kind kind, const FaArgs& a, cudaStream_t stream) {
@@ -1036,8 +1185,8 @@ int dispatch(Kind kind, const FaArgs* a, cudaStream_t stream) {
   if (a->hd < 8 || a->hd > 128 || a->hd % 8) return (int)cudaErrorInvalidValue;
   if (a->dtype == 0) return dispatch_ffma<float>(kind, *a, stream);
   if (a->dtype != 1) return (int)cudaErrorInvalidValue;
-  if (kind == kForward || kind == kDkv) return dispatch_mma(kind, *a, stream);
-  return dispatch_ffma<bf16>(kind, *a, stream);
+  if (kind == kJvp) return dispatch_ffma<bf16>(kind, *a, stream);
+  return dispatch_mma(kind, *a, stream);
 }
 
 }  // namespace

@@ -11,9 +11,10 @@ extern "C" {
 // reference's layout: q (B, H, hd); dense k, v (B, W, KV, hd) with bias
 // (bias_b, W), bias_b 1 (one row for every sequence) or B; paged pools
 // k, v (P, ps, KV, hd) with page_table (B, maxp) int32 and bias
-// (B, maxp * ps). Outputs, one split per block column: o (B, KV, ns, G, hd)
-// in q's dtype, m and l (B, KV, ns, G) float32; for the paged kernel
-// ns = maxp (one page = one split). Element type of q, k, v, o:
+// (B, maxp * ps). Outputs of the dense kernel, its splits merged: o
+// (B, H, hd) in q's dtype, m and l (B, H) float32. Outputs of the paged
+// kernel, one page per split (ns = maxp): o (B, KV, ns, G, hd) in q's
+// dtype, m and l (B, KV, ns, G) float32. Element type of q, k, v, o:
 // dtype 0 = float32, 1 = bfloat16.
 struct FdArgs {
   const void* q;
@@ -27,7 +28,7 @@ struct FdArgs {
   int B, H, KV, hd;
   int W;       // dense: keys per sequence
   int bias_b;  // dense: rows of bias (1 or B)
-  int ns;      // splits (dense) or logical pages (paged)
+  int ns;      // splits (dense, 1 to 8) or logical pages (paged)
   int span;    // dense: keys per split; paged: page size
   int P;       // paged: pages in the pool
   float scale;
@@ -35,8 +36,8 @@ struct FdArgs {
 };
 
 // Each returns cudaGetLastError() after its launch; cudaErrorInvalidValue
-// for a head dim (any multiple of 8 from 8 to 128 is taken), group size or
-// dtype the kernels do not take.
+// for a head dim (any multiple of 8 from 8 to 128 is taken), group size
+// (up to 32), split count (dense: up to 8) or dtype the kernels do not take.
 int fd_dense(const FdArgs* a, cudaStream_t stream);
 int fd_paged(const FdArgs* a, cudaStream_t stream);
 }

@@ -18,11 +18,15 @@ decode mask, shared by the kernels, their plain versions in
 ``csrc/flash_decode.cu`` (built into the port's one extension,
 ``cg_fused.extension``). The dense wrapper keeps the reference's split
 layout (key blocks of ``min(blk_k, max(W, 8))``, the largest divisor of the
-block count that is at most ``n_splits``); the paged one takes one page per
-split. Each partial o is stored in q's dtype, as the reference's, so bf16
-partials are rounded where the reference rounds them. Every wrapper checks
-device, dtype, shape, head dim, group size and contiguity and raises on
-anything else; it never falls back to the plain version.
+block count that is at most ``n_splits``) and is one launch: the kernel
+merges its splits (at most ``MAX_SPLITS``, one thread-block cluster per
+sequence and kv head) with ``combine_splits``' algebra and returns the
+merged (o, m, l). The paged one takes one page per split and merges the
+per-page partials here, with ``combine_splits``. Each partial o is rounded
+to q's dtype before the merge, as the reference stores it. Every wrapper
+checks device, dtype, shape, head dim, group size, split count and
+contiguity and raises on anything else; it never falls back to the plain
+version.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ NEG_INF = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_GROUP = 32        # most query heads per kv head (csrc: 4 warps x 8 rows)
 MAX_PAGE_SIZE = 128   # page sizes: multiples of 8 up to this
+MAX_SPLITS = 8        # splits the dense kernel merges (csrc: the portable cluster size)
 
 
 # ------------------------------------------------------------ mask -> bias --
@@ -159,26 +164,23 @@ def _scale(scale, hd):
     return float(scale if scale is not None else 1.0 / hd ** 0.5)
 
 
-def _finish(q, o, m, l, return_stats):
-    og, mg, lg = combine_splits(o.float(), m, l)
-    og = og.to(q.dtype)
-    return (og, mg, lg) if return_stats else og
-
-
 # ----------------------------------------------------------------- wrappers --
 def flash_decode(q, k, v, bias, *, scale=None, blk_k=128, n_splits=8, return_stats=False):
-    """Dense split-K decode. q (B, H, hd), k/v (B, W, KV, hd) rolling cache,
-    bias (B|1, W) f32 (``decode_bias``). Returns o (B, H, hd) in q's dtype,
-    or (o, m, l) with (B, H) f32 global stats under ``return_stats``."""
+    """Dense split-K decode, one launch. q (B, H, hd), k/v (B, W, KV, hd)
+    rolling cache, bias (B|1, W) f32 (``decode_bias``). Returns o (B, H, hd)
+    in q's dtype, or (o, m, l) with (B, H) f32 global stats under
+    ``return_stats``."""
     _check_q_kv(q, k, v)
     B, _, hd = q.shape
     W = k.shape[1]
     if k.shape[0] != B:
         raise ValueError(f"k/v batch {k.shape[0]} is not q's {B}")
     _check_bias(bias, (1, B), W, q)
-    o, m, l = extension().flash_decode(q, k, v, bias, *split_layout(W, blk_k, n_splits),
-                                       _scale(scale, hd))
-    return _finish(q, o, m, l, return_stats)
+    ns, span = split_layout(W, blk_k, n_splits)
+    if ns > MAX_SPLITS:
+        raise ValueError(f"{ns} splits: the dense kernel merges at most {MAX_SPLITS}")
+    o, m, l = extension().flash_decode(q, k, v, bias, ns, span, _scale(scale, hd))
+    return (o, m, l) if return_stats else o
 
 
 def flash_decode_paged(q, k_pool, v_pool, page_table, bias, *, scale=None,
@@ -202,4 +204,6 @@ def flash_decode_paged(q, k_pool, v_pool, page_table, bias, *, scale=None,
     _check_bias(bias, (B,), page_table.shape[1] * ps, q)
     o, m, l = extension().flash_decode_paged(q, k_pool, v_pool, page_table, bias,
                                              _scale(scale, hd))
-    return _finish(q, o, m, l, return_stats)
+    og, mg, lg = combine_splits(o.float(), m, l)
+    og = og.to(q.dtype)
+    return (og, mg, lg) if return_stats else og

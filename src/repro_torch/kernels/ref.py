@@ -3,8 +3,9 @@
 (``bicgstab_x_update_ref``, ``bicgstab_residual_dots_ref``, ``dot2_ref`` and,
 for ``ops.gram_block``, ``gram_block_ref``), the four flash-attention
 passes, each with its kernel's own outputs, the dense and paged decode
-(``flash_decode_ref``, ``flash_decode_paged_ref``) and the SSD intra-chunk
-step (``ssd_intra_ref``).
+(``flash_decode_ref``, ``flash_decode_paged_ref``, and the dense decode
+split and merged as its kernel splits it, ``flash_decode_split_ref``) and
+the SSD intra-chunk step (``ssd_intra_ref``).
 
 ``kernels.ops`` runs these for tensors on the CPU; ``chip_smoke.py`` holds
 each CUDA kernel against them on the card. Sums are ``torch.sum`` of the
@@ -25,6 +26,8 @@ is their own copy (``_ref_mask``), independent of
 from __future__ import annotations
 
 import torch
+
+from .flash_decode import combine_splits, split_layout
 
 # Column block of the reference's Gram kernel (``repro/kernels/cg_fused.py``
 # ``BLOCK_GRAM``): the plain Gram sums per-block partials in block order.
@@ -225,6 +228,30 @@ def flash_decode_ref(q, k, v, bias, *, scale=None, return_stats=False):
         return out
     m = torch.where(m <= NEG_INF / 2, torch.full_like(m, NEG_INF), m)
     return out, m.reshape(B, H), l.reshape(B, H)
+
+
+def flash_decode_split_ref(q, k, v, bias, *, scale=None, blk_k=128, n_splits=8,
+                           return_stats=False):
+    """Dense decode split as the kernel and the reference split it
+    (``flash_decode.split_layout``): each split's partial (o, m, l) from
+    ``flash_decode_ref`` on that split's keys, o rounded to q's type, then
+    the partials merged in split order with ``combine_splits`` (in f32, in
+    float64 from float64 inputs) and o cast to q's type. Returns as
+    ``flash_decode_ref``. The tests and ``chip_smoke.py`` hold the one-launch
+    dense kernel against it."""
+    B, H, hd = q.shape
+    W, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    ns, span = split_layout(W, blk_k, n_splits)
+    bias = bias.expand(B, W)
+    parts = [flash_decode_ref(q, k[:, s:s + span], v[:, s:s + span], bias[:, s:s + span],
+                              scale=scale, return_stats=True)
+             for s in range(0, ns * span, span)]
+    o, m, l = (torch.stack([_up(p[i]).reshape(B, KV, G, *p[i].shape[2:]) for p in parts],
+                           dim=2) for i in range(3))
+    og, mg, lg = combine_splits(o, m, l)
+    og = og.to(q.dtype)
+    return (og, mg, lg) if return_stats else og
 
 
 def flash_decode_paged_ref(q, k_pool, v_pool, page_table, bias, *, scale=None,

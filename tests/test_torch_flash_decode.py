@@ -6,6 +6,9 @@
   (``FD_CASES``, ``PAGED_CASES``, head dim 16 included), each in f32 and
   bf16: within 1e-5 (f32) and 1e-2 (bf16) of the largest magnitude of the
   reference (bf16 rounding of the per-split partials alone is ~4e-3).
+* The plain split-and-merge of the dense kernel
+  (``ref.flash_decode_split_ref``) against the Pallas kernel on one, two and
+  eight splits, a ragged W, wholly masked splits and an idle row.
 * The (o, m, l) contract of ``return_stats``, fully masked rows, the mask
   functions ``decode_bias``/``paged_bias``, ``combine_splits`` and
   ``_pick_splits`` against the reference's (masks and split counts exactly).
@@ -28,7 +31,7 @@ from repro.kernels import ops as jops, ref as jref  # noqa: E402
 from repro.models import attention as jatt  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.interop import kv_cache_to_numpy, params_from_numpy  # noqa: E402
-from repro_torch.kernels import cg_fused, ops  # noqa: E402
+from repro_torch.kernels import cg_fused, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.models import attention as att  # noqa: E402
 
@@ -165,6 +168,51 @@ def test_return_stats_match_reference_and_merge():
     _close(merged, o.numpy(), TOL["float32"])
     _close(mm, m.numpy(), TOL["float32"])
     _close(ml, l.numpy(), TOL["float32"])
+
+
+# The dense kernel's split layouts: (B, W, H, KV, hd, blk_k, n_splits, window,
+# idle row). One split, two, eight; a ragged W (the last split holds 12 of
+# its 64 keys); a window that masks six of eight splits wholly; an idle row.
+SPLIT_CASES = {
+    "ns1": (2, 96, 4, 2, 32, 128, 8, None, False),
+    "ns2": (2, 128, 4, 2, 32, 64, 2, None, False),
+    "ns8": (2, 512, 6, 1, 32, 64, 8, None, False),
+    "ns8-ragged": (2, 460, 6, 2, 32, 64, 8, None, False),
+    "ns8-masked-splits": (2, 512, 4, 2, 32, 64, 8, 100, False),
+    "ns4-idle-row": (3, 256, 8, 2, 64, 64, 8, None, True),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", list(SPLIT_CASES))
+def test_flash_decode_split_ref_matches_pallas_kernel(name, dtype):
+    """``ref.flash_decode_split_ref`` (the plain split-and-merge the dense
+    kernel is held to on the card) against the Pallas kernel in interpret
+    mode, (o, m, l), on the reference's split layouts: o within 1e-5 (f32)
+    and 1e-2 (bf16; both round each split's o to bf16, the Pallas kernel
+    its unnormalised weights, the plain version the normalised ones) of
+    max|o|, m on live rows and l within 1e-5; an idle row is exactly
+    (0, NEG_INF, 0) on both sides."""
+    B, W, H, KV, hd, blk_k, n_splits, window, idle = case = SPLIT_CASES[name]
+    assert fd.split_layout(W, blk_k, n_splits)[0] == int(name[2])
+    (jq, jk, jv, jbias), (q, k, v, bias) = _dense_inputs(case[:8] + (False,), dtype,
+                                                         list(SPLIT_CASES).index(name))
+    bias = bias.expand(B, W).clone()
+    if idle:
+        bias[-1] = fd.NEG_INF
+    got = ref.flash_decode_split_ref(q, k, v, bias, blk_k=blk_k, n_splits=n_splits,
+                                     return_stats=True)
+    want = jfd.flash_decode(jq, jk, jv, jnp.asarray(bias.numpy()), blk_k=blk_k,
+                            n_splits=n_splits, interpret=True, return_stats=True)
+    assert got[0].dtype == q.dtype and got[0].shape == (B, H, hd)
+    _close(got[0], np.asarray(want[0], np.float32), TOL[dtype])
+    live = np.asarray(want[1]) > fd.NEG_INF / 2
+    assert np.array_equal(got[1].numpy() > fd.NEG_INF / 2, live)
+    _close(got[1][torch.from_numpy(live)], np.asarray(want[1])[live], TOL["float32"])
+    _close(got[2], np.asarray(want[2]), TOL["float32"])
+    if idle:
+        assert torch.all(got[0][-1] == 0) and torch.all(got[1][-1] <= fd.NEG_INF / 2)
+        assert torch.all(got[2][-1] == 0)
 
 
 @pytest.mark.parametrize("paged", [False, True])
