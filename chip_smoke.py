@@ -10,9 +10,10 @@ Phases, each printed on lines of its own; any failure exits non-zero:
              ``ssd_scan.cu``, one extension); beside it, ``nvcc -Xptxas -v``
              on ``flash_attention.cu`` and on ``flash_decode.cu`` prints the
              registers, spills and shared memory of each instance of the
-             three tensor-core flash kernels (forward, dQ, dK/dV) and of the
-             one-launch dense decode kernel (a spill in dQ fails); print the
-             build time and the card's name and power limit.
+             four tensor-core flash kernels (forward, dQ, dK/dV, JVP) and of
+             the two one-launch decode kernels (dense, paged; a spill in dQ
+             or the JVP fails); print the build time and the card's name and
+             power limit.
 2. kernels — each Krylov kernel against its plain PyTorch version on the card
              at n = 1,722,293 (the TIMIT MLP's parameter count) and n = 65,537:
              relative error (≤ 1e-5), time with L2 cold and warm, the plain
@@ -71,19 +72,21 @@ Phases, each printed on lines of its own; any failure exits non-zero:
              zeroed just before and read just after.
 8. transformer profile — one gn_cg step of the slice under
              ``torch.profiler``: wall, device-busy share, top kernels and the
-             flash kernels' share of device time.
+             flash kernels' share of device time (the bf16 JVP must show as
+             ``fa_jvp_mma``).
 9. transformer checks — granite-3-8b's smoke config (GQA, kv 2) in f32: the
              flash model against the ``_sdpa`` model on the card (loss,
              gradient, GN and Hessian products within 1e-4), and one gn_cg
              ``hf_step`` (λ 100, cg_tol 0) on the card against the CPU's
              plain versions (parameters within 1e-4).
-10. decode — the split-K decode kernels (``flash_decode``, dense rolling
-             cache, one launch that merges its splits; ``flash_decode_paged``,
-             page pool) against their plain versions on ``DECODE_CASES`` and
-             ``PAGED_CASES`` in f32 and bf16: relative error of max|plain|
-             ≤ 1e-5 (f32) and ≤ 1e-2 (bf16), the same against float64 and,
-             for the dense kernel, against the plain split-and-merge on the
-             inputs in their own type; the return_stats (m, l) within 1e-5,
+10. decode — the split-K decode kernels, each one launch that merges its
+             partials (``flash_decode``, dense rolling cache, its splits;
+             ``flash_decode_paged``, page pool, its pages) against their plain
+             versions on ``DECODE_CASES`` and ``PAGED_CASES`` in f32 and bf16:
+             relative error of max|plain| ≤ 1e-5 (f32) and ≤ 1e-2 (bf16), the
+             same against float64 and against the kernel's plain
+             split-and-merge on the inputs in their own type; the
+             return_stats (m, l) within 1e-5,
              idle rows exactly (0, NEG_INF, 0); times with L2 cold and warm,
              the plain version's, ``scaled_dot_product_attention`` as the
              dense kernel's yardstick, and the byte bound of the live K/V.
@@ -101,8 +104,8 @@ Phases, each printed on lines of its own; any failure exits non-zero:
              prefilled state, the first decode step's logits through the
              kernels against the plain route and paged against dense (within
              1e-2 of max|logit|), the prefill profiled, and 8 decode steps
-             timed and profiled (the dense decode kernel's launches a step
-             must be 28, one a layer).
+             timed and profiled, dense and then paged (each decode kernel's
+             launches a step must be 28, one a layer).
 12. serve checks — qwen2-1.5b's smoke config (hd 32) in f32 with flash on
              the card: continuous batching (3 requests on 2 slots) gives
              batch-at-once's tokens, the card gives the CPU's tokens for both,
@@ -192,7 +195,9 @@ def card_line() -> str:
 
 # ----------------------------------------------------------------- build --
 PTXAS_SOURCES = ("flash_attention.cu", "flash_decode.cu")
-PTXAS_KERNELS = ("fa_forward_mma", "fa_dq_mma", "fa_dkv_mma", "fd_dense_kernel")
+PTXAS_KERNELS = ("fa_forward_mma", "fa_dq_mma", "fa_dkv_mma", "fa_jvp_mma", "fd_dense_kernel",
+                 "fd_paged_kernel")
+NO_SPILL = ("fa_dq_mma", "fa_jvp_mma")  # a spill in an instance of these fails the run
 
 
 def start_ptxas():
@@ -220,8 +225,9 @@ def start_ptxas():
 def _smem_bytes(kernel, args):
     """Dynamic shared memory of one block, the launchers' formulas: (64 +
     4·64)·(HDP + 8)·2 B forward, (128 + 4·BK)·(HDP + 8)·2 B dQ, that + 16·BK
-    B dK/dV; the dense decode's at one round of its ring (``DenseSmem``)."""
-    if kernel == "fd_dense_kernel":
+    B dK/dV, (128 + 8·BK)·(HDP + 8)·2 B JVP; the decode kernels' at one round
+    of their ring (``Smem``)."""
+    if kernel in ("fd_dense_kernel", "fd_paged_kernel"):
         esz, hd, rpw, wk = args
         rows = 4 // wk * rpw
         return (esz * 2 * 4 * 32 * hd
@@ -229,13 +235,15 @@ def _smem_bytes(kernel, args):
     ld = args[0] + 8
     if kernel == "fa_forward_mma":
         return 2 * (64 + 4 * 64) * ld
+    if kernel == "fa_jvp_mma":
+        return 2 * (128 + 8 * args[1]) * ld
     return 2 * (128 + 4 * args[1]) * ld + (16 * args[1] if kernel == "fa_dkv_mma" else 0)
 
 
 def print_ptxas(procs):
-    """Registers, spills and shared memory of each instance of the three
-    tensor-core flash kernels and of the dense decode kernel; fails if one
-    is missing, or if an instance of ``fa_dq_mma`` spills."""
+    """Registers, spills and shared memory of each instance of the four
+    tensor-core flash kernels and of the two decode kernels; fails if one is
+    missing, or if an instance of ``fa_dq_mma`` or ``fa_jvp_mma`` spills."""
     seen = set()
     for name, proc in procs:
         out, _ = proc.communicate(timeout=900)
@@ -254,8 +262,8 @@ def print_ptxas(procs):
                 frame = tuple(int(x) for x in m.groups())
                 continue
             m = re.search(r"Used (\d+) registers", line)
-            k = re.search(r"(fa_forward_mma|fa_dq_mma|fa_dkv_mma|fd_dense_kernel)I"
-                          r"(13__nv_bfloat16|f)?((?:Li\d+E)+)E", func or "")
+            k = re.search(r"(" + "|".join(PTXAS_KERNELS) + r")I(13__nv_bfloat16|f)?"
+                          r"((?:Li\d+E)+)E", func or "")
             if not (m and k):
                 continue
             args = [int(x) for x in re.findall(r"Li(\d+)E", k.group(3))]
@@ -268,8 +276,8 @@ def print_ptxas(procs):
                   f"{st} B, spill loads {lo} B, stack {stack} B, dynamic shared memory "
                   f"{_smem_bytes(k.group(1), args)} B", flush=True)
             seen.add(k.group(1))
-            if k.group(1) == "fa_dq_mma" and (st or lo):
-                fail(f"fa_dq_mma<{shown}> spills: {st} B stored, {lo} B loaded")
+            if k.group(1) in NO_SPILL and (st or lo):
+                fail(f"{k.group(1)}<{shown}> spills: {st} B stored, {lo} B loaded")
     if seen != set(PTXAS_KERNELS):
         fail(f"ptxas reported {sorted(seen)}, not every kernel of {PTXAS_KERNELS}")
 
@@ -1012,6 +1020,8 @@ def phase_transformer_profile(torch, params, state):
           flush=True)
     if busy <= 0:
         fail("the profiler saw no device time in the transformer step")
+    if not any("fa_jvp_mma" in e.key for e in flash):
+        fail("the bf16 JVP did not run fa_jvp_mma in the transformer step")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"[transformer-profile] {e.self_device_time_total / 1e3:9.3f} ms  "
               f"x{e.count:<6d} {e.key[:90]}", flush=True)
@@ -1179,6 +1189,7 @@ def _paged_case(torch, case, dtype, gen):
     live_pages = int((bias.reshape(B, maxp, ps) > fd.NEG_INF / 2).any(-1).sum())
     kv_page = ps * KV * hd * q.element_size()
     return dict(args=(q, kp, vp, tbl, bias), kw={},
+                # the one launch that returns the merged (o, m, l)
                 raw=lambda: fd.extension().flash_decode_paged(q, kp, vp, tbl, bias, hd ** -0.5),
                 n_bytes=(q.numel() * q.element_size() + 2 * live_pages * kv_page
                          + bias.numel() * 4 + tbl.numel() * 4))
@@ -1202,20 +1213,21 @@ def phase_decode(torch, reps_cold=20, reps_warm=100, dense_cases=DECODE_CASES,
     """The two decode kernels against their plain versions on every case, f32
     and bf16: the output against the plain version in f32 and in float64,
     the return_stats (m, l) against the plain (m, l), and idle rows exactly
-    (0, NEG_INF, 0); the dense kernel also against the plain split-and-merge
-    (``flash_decode_split_ref``) on the inputs in their own type, under the
-    same gates. ``ms`` times the wrapper (dense: its one launch; paged: the
-    kernel and the torch merge of the pages), ``kernel_ms`` the binding's
-    launch alone. Returns the records of the slice's cases in bf16."""
+    (0, NEG_INF, 0); each kernel also against its plain split-and-merge
+    (``flash_decode_split_ref``, ``flash_decode_paged_split_ref``) on the
+    inputs in their own type, under the same gates. ``ms`` times the wrapper
+    (its checks and its one launch), ``kernel_ms`` the binding's launch
+    alone. Returns the records of the slice's cases in bf16."""
     from repro_torch.kernels import flash_decode as fd, ref
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     records = {}
-    for name, cases, make, kern_fn, plain_fn in (
-            ("flash_decode", dense_cases, _dense_case, fd.flash_decode, ref.flash_decode_ref),
+    for name, cases, make, kern_fn, plain_fn, split_fn in (
+            ("flash_decode", dense_cases, _dense_case, fd.flash_decode, ref.flash_decode_ref,
+             ref.flash_decode_split_ref),
             ("flash_decode_paged", paged_cases, _paged_case, fd.flash_decode_paged,
-             ref.flash_decode_paged_ref)):
+             ref.flash_decode_paged_ref, ref.flash_decode_paged_split_ref)):
         for case in cases:
             for dtype in (torch.float32, torch.bfloat16):
                 dname = str(dtype).split(".")[-1]
@@ -1235,13 +1247,12 @@ def phase_decode(torch, reps_cold=20, reps_warm=100, dense_cases=DECODE_CASES,
                     float((got[2] - want[2]).abs().max() / want[2].abs().max()))
                 idle_ok = bool((got[1][~live] <= fd.NEG_INF / 2).all()
                                and (got[2][~live] == 0).all() and (got[0][~live] == 0).all())
-                split_rel = split_stats = None
-                if name == "flash_decode":  # the plain split-and-merge, inputs as given
-                    split = ref.flash_decode_split_ref(*args, return_stats=True, **kw)
-                    split_rel = _rel(got[:1], split[:1])[0]
-                    split_stats = max(
-                        float((got[1] - split[1])[live].abs().max() / split[1][live].abs().max()),
-                        float((got[2] - split[2]).abs().max() / split[2].abs().max()))
+                # the plain split-and-merge, inputs as given
+                split = split_fn(*args, return_stats=True, **kw)
+                split_rel = _rel(got[:1], split[:1])[0]
+                split_stats = max(
+                    float((got[1] - split[1])[live].abs().max() / split[1][live].abs().max()),
+                    float((got[2] - split[2]).abs().max() / split[2].abs().max()))
                 b_ms, b_by = bound_ms(x["n_bytes"] + got[0].numel() * got[0].element_size(), 0)
                 library = _decode_library(torch, x) if name == "flash_decode" else None
                 rec = {
@@ -1249,8 +1260,8 @@ def phase_decode(torch, reps_cold=20, reps_warm=100, dense_cases=DECODE_CASES,
                     "stats_rel_err": stats_rel, "idle_rows": int((~live).sum()),
                     "rel_err_split": split_rel, "stats_rel_err_split": split_stats,
                     "max_abs_err": abs_err,
-                    # the paged wrapper enqueues ~10 launches from Python: a
-                    # 2M-cycle (~1 ms) sleep covers that, as 200k cycles may not
+                    # a 2M-cycle (~1 ms) sleep covers the wrapper's checks in
+                    # Python, as 200k cycles may not
                     "ms": time_cold(torch, kern, flush, reps_cold, 2_000_000),
                     "ms_l2_warm": time_warm(torch, kern, reps_warm),
                     "kernel_ms": time_cold(torch, x["raw"], flush, reps_cold),
@@ -1263,8 +1274,8 @@ def phase_decode(torch, reps_cold=20, reps_warm=100, dense_cases=DECODE_CASES,
                 }
                 print(f"[{label}] {name}: {json.dumps(rec)}", flush=True)
                 tol = DECODE_TOL[dname]
-                if not (max(rel, rel64, split_rel or 0.0) <= tol
-                        and max(stats_rel, split_stats or 0.0) <= TOL and idle_ok):
+                if not (max(rel, rel64, split_rel) <= tol and max(stats_rel, split_stats) <= TOL
+                        and idle_ok):
                     fail(f"{name} on {case[0]} {dname}: relative error {rel} (float64 "
                          f"{rel64}, split-and-merge {split_rel}), stats {stats_rel} "
                          f"(split-and-merge {split_stats}), idle rows right: {idle_ok}")
@@ -1276,10 +1287,10 @@ def phase_decode(torch, reps_cold=20, reps_warm=100, dense_cases=DECODE_CASES,
     return records
 
 
-def _decode_kernel_share(kern, steps):
-    """(ms, launches) a step of the dense decode kernel in a profile of
+def _decode_kernel_share(kern, steps, name="fd_dense_kernel"):
+    """(ms, launches) a step of the decode kernel ``name`` in a profile of
     ``steps`` decode steps."""
-    fdk = [e for e in kern if "fd_dense_kernel" in e.key]
+    fdk = [e for e in kern if name in e.key]
     return (sum(e.self_device_time_total for e in fdk) / 1e3 / steps,
             sum(e.count for e in fdk) / steps)
 
@@ -1391,8 +1402,9 @@ def phase_serve_fullwidth(torch, params, prompts):
     one. In bf16 each route is also held against the same step in f32 (the
     bf16 weights and caches upcast, plain route), and the comparisons are
     repeated in f32 end to end. The prefill runs under torch.profiler (its
-    device time and the flash forward's share). Then 8 decode steps are
-    timed, profiled and their host reads counted."""
+    device time and the flash forward's share). Then 8 dense decode steps
+    are timed, profiled and their host reads counted, and 8 paged decode
+    steps from the same prompts timed and profiled."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from torch.utils._pytree import tree_map
@@ -1440,7 +1452,6 @@ def phase_serve_fullwidth(torch, params, prompts):
                 "paged": fl.decode_step_paged(pp, tok, pc._replace(
                     k_pool=pc.k_pool.to(dt, copy=True), v_pool=pc.v_pool.to(dt, copy=True)))[0]}
         del pp
-    del pc
     torch.cuda.empty_cache()
     b16, f32 = out["bfloat16"], out["float32"]
     rel = {"f32 kernels/plain": _rel_logits(f32["kernels"], f32["plain"]),
@@ -1474,6 +1485,7 @@ def phase_serve_fullwidth(torch, params, prompts):
                 tok.cpu()
         return (time.perf_counter() - t) * 1e3 / n
 
+    ptok = tok.clone()
     steps(SERVE_S, 4)  # warm
     step_ms = steps(SERVE_S + 4)
     reads = count_host_reads(torch, lambda: steps(SERVE_S + 12, 1))
@@ -1496,6 +1508,40 @@ def phase_serve_fullwidth(torch, params, prompts):
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"[serve-profile] {e.self_device_time_total / 1e3 / 8:9.4f} ms/step  "
               f"x{e.count // 8:<4d} {e.key[:90]}", flush=True)
+    del cache
+
+    def paged_steps(n=8):
+        nonlocal pc, ptok
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.no_grad():
+            for _ in range(n):
+                lg, pc = flash.decode_step_paged(params, ptok, pc)
+                ptok = lg.argmax(-1)
+                ptok.cpu()
+        return (time.perf_counter() - t) * 1e3 / n
+
+    paged_steps(4)  # warm
+    step_ms = paged_steps()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_ms = paged_steps()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3 / 8
+    fd_ms, fd_n = _decode_kernel_share(kern, 8, "fd_paged_kernel")
+    print(f"[serve-profile] paged decode step ({SERVE_B} slots x 1 token, pages of {SERVE_PS}, "
+          f"{cfg.n_layers} layers): wall {step_ms:.3f} ms unprofiled, {prof_ms:.3f} ms "
+          f"profiled; device busy {busy:.3f} ms = {100 * busy / step_ms:.2f}% of the "
+          f"unprofiled wall; flash_decode_paged kernel {fd_ms:.4f} ms = "
+          f"{100 * fd_ms / max(busy, 1e-9):.2f}% of device time in {fd_n:g} launches; "
+          f"{sum(e.count for e in kern) / 8:.0f} device kernels a step", flush=True)
+    if busy <= 0:
+        fail("the profiler saw no device time in the paged decode steps")
+    if fd_n != cfg.n_layers:
+        fail(f"{fd_n} paged decode launches a step, not one per layer ({cfg.n_layers})")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"[serve-profile] paged {e.self_device_time_total / 1e3 / 8:9.4f} ms/step  "
+              f"x{e.count // 8:<4d} {e.key[:90]}", flush=True)
+    del pc
 
 
 def phase_serve_checks(torch):

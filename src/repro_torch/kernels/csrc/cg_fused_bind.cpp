@@ -344,13 +344,13 @@ FdArgs fd_args(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
   return a;
 }
 
-// Per-page (o, m, l) of the paged kernel.
+// The merged outputs of both decode kernels: o (B, H, hd) in q's dtype, m
+// and l (B, H) float32.
 std::vector<at::Tensor> fd_outputs(FdArgs& a, const at::Tensor& q) {
-  const int64_t G = a.H / a.KV;
-  auto o = at::empty({a.B, a.KV, a.ns, G, a.hd}, q.options());
+  auto o = at::empty_like(q);
   auto opts = q.options().dtype(at::kFloat);
-  auto m = at::empty({a.B, a.KV, a.ns, G}, opts);
-  auto l = at::empty({a.B, a.KV, a.ns, G}, opts);
+  auto m = at::empty({a.B, a.H}, opts);
+  auto l = at::empty({a.B, a.H}, opts);
   a.o = o.data_ptr();
   a.m = m.data_ptr<float>();
   a.l = l.data_ptr<float>();
@@ -379,18 +379,14 @@ std::vector<at::Tensor> flash_decode(const at::Tensor& q, const at::Tensor& k,
   a.ns = (int)n_splits;
   a.span = (int)span;
   c10::cuda::CUDAGuard guard(q.device());
-  auto o = at::empty_like(q);
-  auto opts = q.options().dtype(at::kFloat);
-  auto m = at::empty({a.B, a.H}, opts);
-  auto l = at::empty({a.B, a.H}, opts);
-  a.o = o.data_ptr();
-  a.m = m.data_ptr<float>();
-  a.l = l.data_ptr<float>();
+  auto out = fd_outputs(a, q);
   fa_check(fd_dense(&a, c10::cuda::getCurrentCUDAStream().stream()), "flash_decode");
-  return {o, m, l};
+  return out;
 }
 
-// Per-page (o, m, l) of the paged decode over the (P, ps, KV, hd) pools.
+// The merged (o (B, H, hd) in q's dtype, m (B, H), l (B, H)) of the paged
+// decode over the (P, ps, KV, hd) pools, one page per split, in one launch:
+// the pages' partials are merged inside the kernel.
 std::vector<at::Tensor> flash_decode_paged(const at::Tensor& q, const at::Tensor& k_pool,
                                            const at::Tensor& v_pool,
                                            const at::Tensor& page_table,
@@ -472,7 +468,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_dkv", &flash_dkv, "flash attention backward: per-q-head (dk, dv)");
   m.def("flash_jvp", &flash_jvp, "flash attention tangent pass: (g, t)");
   m.def("flash_decode", &flash_decode, "split-K flash decode, splits merged: (o, m, l)");
-  m.def("flash_decode_paged", &flash_decode_paged, "paged flash decode: per-page (o, m, l)");
+  m.def("flash_decode_paged", &flash_decode_paged, "paged flash decode, merged: (o, m, l)");
   m.def("ssd_intra", &ssd_intra_fwd, "SSD intra-chunk: (y, S, g, l)");
   m.def("ssd_intra_smem_bytes", &ssd_intra_smem_bytes,
         "dynamic shared memory of one ssd_intra block at (Q, N, P)");

@@ -21,39 +21,42 @@
 // on operations at B 8, 16 heads), in f32 FFMA (67 TFLOP/s) the operations
 // bound. Two routes:
 //
-//   * bf16 forward, dQ and dK/dV: tensor-core tiles (fa_forward_mma,
-//     fa_dq_mma, fa_dkv_mma), mma.sync.m16n8k16 with f32 accumulation, in
+//   * bf16, all four passes: tensor-core tiles (fa_forward_mma, fa_dq_mma,
+//     fa_dkv_mma, fa_jvp_mma), mma.sync.m16n8k16 with f32 accumulation, in
 //     the shape of FlashAttention-2. One block of 4 warps per (64 rows of
 //     its own side, h, b); each warp owns 16 rows. The other side's tiles
-//     (64 keys for the forward; 64 keys or queries for dQ and dK/dV, 32 at
-//     head dims above 64) come in bf16 by cp.async into a two-stage ring,
-//     the next tile in flight while the current one is computed, rows
-//     padded by 16 bytes so that ldmatrix hits 8 distinct bank groups. The
-//     head dim is the k-dimension of the score product and is padded with
-//     zero columns in shared memory to the next multiple of 16 (the
-//     template width HDP); every stride in memory is the true hd's. Scores
-//     stay in f32 C fragments; the mask and bias are applied per element
-//     only on tiles the mask cuts (tile_open), and the softmax statistics
-//     need only quad shuffles. The weights (P, and dS in dQ and dK/dV),
-//     rounded to bf16, go from the C fragments of one product straight into
-//     the A fragments of the next, never through shared memory; V, dO, Q
-//     and (in dQ) K are read as B operands with ldmatrix.trans. dQ forms
-//     S = Q·Kᵀ and dP = dO·Vᵀ with lse and Δ of the warp's rows in
-//     registers and keeps dQ in f32 registers; dK/dV forms Sᵀ = K·Qᵀ and
-//     dPᵀ = V·dOᵀ directly, so that Pᵀ and dSᵀ are its A operands, and
-//     keeps dK and dV in f32 registers. Blocks launch longest first (the
-//     tile index is the grid's slowest axis), which shortens the causal
-//     tail. Not yet: wgmma, TMA and warp specialisation (the producer warp,
-//     a deeper ring), which would reach the operation bound.
-//   * f32 (all four passes) and the bf16 JVP: f32 FFMA from shared memory,
-//     the simple and exact first form (TF32 would not hold the f32 1e-5
-//     gates). The TPU grid's sequential innermost axis becomes a loop inside
-//     one block, with the m/l/acc recurrence in f32 registers. One block per
-//     (b, h, 32-row tile). Tiles of 32 rows are staged in shared memory as
-//     f32 (bf16 inputs widened on load), rows padded to HD + 4 floats so
-//     that lane j reading row j as float4 hits distinct banks. HD, the
-//     register width, is 32, 64 or 128, the smallest at or above hd; columns
-//     [hd, HD) are staged as zeros and never stored. Warp w owns 8 rows of
+//     (64 keys for the forward; 64 keys or queries for dQ, dK/dV and the
+//     JVP, 32 at head dims above 64) come in bf16 by cp.async into a
+//     two-stage ring, the next tile in flight while the current one is
+//     computed, rows padded by 16 bytes so that ldmatrix hits 8 distinct
+//     bank groups. The head dim is the k-dimension of the score product and
+//     is padded with zero columns in shared memory to the next multiple of
+//     16 (the template width HDP); every stride in memory is the true hd's.
+//     Scores stay in f32 C fragments; the mask and bias are applied per
+//     element only on tiles the mask cuts (tile_open), and the softmax
+//     statistics need only quad shuffles. The weights (P, dS in dQ and dK/dV, R and P
+//     in the JVP), rounded to bf16, go from the C fragments of one product
+//     straight into the A fragments of the next, never through shared
+//     memory; V, V̇, dO, Q and (in dQ) K are read as B operands with
+//     ldmatrix.trans. dQ forms S = Q·Kᵀ and dP = dO·Vᵀ with lse and Δ of
+//     the warp's rows in registers and keeps dQ in f32 registers; dK/dV
+//     forms Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ directly, so that Pᵀ and dSᵀ are its A
+//     operands, and keeps dK and dV in f32 registers; the JVP forms S = Q·Kᵀ
+//     and Ṡ = Q̇·Kᵀ + Q·K̇ᵀ (both products in one f32 accumulator), then g =
+//     round(R)·V + round(P)·V̇ in one f32 accumulator, and t from the
+//     unrounded R. Blocks launch longest first (the tile index is the
+//     grid's slowest axis), which shortens the causal tail. Not yet: wgmma,
+//     TMA and warp specialisation (the producer warp, a deeper ring), which
+//     would reach the operation bound.
+//   * f32, all four passes: f32 FFMA from shared memory, the simple and
+//     exact first form (TF32 would not hold the f32 1e-5 gates). The TPU
+//     grid's sequential innermost axis becomes a loop inside one block,
+//     with the m/l/acc recurrence in f32 registers. One block per (b, h,
+//     32-row tile). Tiles of 32 rows are staged in shared memory, rows
+//     padded to HD + 4 floats so that lane j reading row j as float4 hits
+//     distinct banks. HD, the register width, is 32, 64 or 128, the
+//     smallest at or above hd; columns [hd, HD) are staged as zeros and
+//     never stored. Warp w owns 8 rows of
 //     its block's side; lane j owns row j of the staged tile on the other
 //     side, so a warp's 32-wide score row comes from float4 dot products and
 //     its softmax statistics from warp shuffles. The product with V (or K,
@@ -74,8 +77,6 @@
 #include "flash_attention.h"
 
 #include <cuda_bf16.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -145,23 +146,6 @@ __device__ __forceinline__ Heads heads(const FaArgs& a, int b, int h, int hd) {
 }
 
 // ====================================================== f32 FFMA route ==
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const bf16* p) {
-  // Four bf16 values as two 32-bit words; element 0 is the low half of x.
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-}
-
-// x rounded to T, as the reference's ``.astype(T)`` before a product.
-__device__ __forceinline__ float round_to(float x, const float*) { return x; }
-__device__ __forceinline__ float round_to(float x, const bf16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
@@ -172,18 +156,19 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Rows [r0, r0 + 32) of a (rows, row_stride) tensor, hd values each, into
-// shared memory as f32 rows of HD + 4 (HD >= hd, the register width);
-// rows at or past n and columns [hd, HD) are zero, so they add exact zeros
-// to every dot product.
-template <class T, int HD>
-__device__ __forceinline__ void stage(float* sm, const T* base, int64_t row_stride, int r0,
+// Rows [r0, r0 + 32) of a (rows, row_stride) f32 tensor, hd values each,
+// into shared memory as rows of HD + 4 (HD >= hd, the register width); rows
+// at or past n and columns [hd, HD) are zero, so they add exact zeros to
+// every dot product.
+template <int HD>
+__device__ __forceinline__ void stage(float* sm, const float* base, int64_t row_stride, int r0,
                                       int n, int hd) {
   constexpr int LD = HD + 4, V = HD / 4;
   for (int idx = threadIdx.x; idx < kCols * V; idx += kThreads) {
     const int r = idx / V, c = (idx - r * V) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < n && c < hd) x = load4(base + (int64_t)(r0 + r) * row_stride + c);
+    if (r0 + r < n && c < hd)
+      x = *reinterpret_cast<const float4*>(base + (int64_t)(r0 + r) * row_stride + c);
     *reinterpret_cast<float4*>(sm + r * LD + c) = x;
   }
 }
@@ -250,7 +235,7 @@ __global__ void __launch_bounds__(kThreads) fa_forward_kernel(const FaArgs a) {
   const Heads hx = heads(a, b, h, a.hd);
   const float* k = static_cast<const float*>(a.k) + hx.k_off;
   const float* v = static_cast<const float*>(a.v) + hx.k_off;
-  stage<float, HD>(sQ, static_cast<const float*>(a.q) + hx.q_off, hx.q_stride, q0, a.Sq, a.hd);
+  stage<HD>(sQ, static_cast<const float*>(a.q) + hx.q_off, hx.q_stride, q0, a.Sq, a.hd);
 
   float acc[kRows][DPL], m[kRows], l[kRows];
 #pragma unroll
@@ -265,8 +250,8 @@ __global__ void __launch_bounds__(kThreads) fa_forward_kernel(const FaArgs a) {
   key_range(a, q0, kTile, kb, ke);
   for (int k0 = kb; k0 < ke; k0 += kCols) {
     __syncthreads();
-    stage<float, HD>(sK, k, hx.k_stride, k0, a.Sk, a.hd);
-    stage<float, HD>(sV, v, hx.k_stride, k0, a.Sk, a.hd);
+    stage<HD>(sK, k, hx.k_stride, k0, a.Sk, a.hd);
+    stage<HD>(sV, v, hx.k_stride, k0, a.Sk, a.hd);
     __syncthreads();
     float s[kRows];
     dots<HD>(s, sQ + warp * kRows * LD, sK + lane * LD);
@@ -322,8 +307,8 @@ __global__ void __launch_bounds__(kThreads) fa_dq_kernel(const FaArgs a) {
   const Heads hx = heads(a, b, h, a.hd);
   const float* k = static_cast<const float*>(a.k) + hx.k_off;
   const float* v = static_cast<const float*>(a.v) + hx.k_off;
-  stage<float, HD>(sQ, static_cast<const float*>(a.q) + hx.q_off, hx.q_stride, q0, a.Sq, a.hd);
-  stage<float, HD>(sDO, static_cast<const float*>(a.dout) + hx.q_off, hx.q_stride, q0, a.Sq,
+  stage<HD>(sQ, static_cast<const float*>(a.q) + hx.q_off, hx.q_stride, q0, a.Sq, a.hd);
+  stage<HD>(sDO, static_cast<const float*>(a.dout) + hx.q_off, hx.q_stride, q0, a.Sq,
                    a.hd);
 
   float acc[kRows][DPL], lse[kRows], delta[kRows];
@@ -341,8 +326,8 @@ __global__ void __launch_bounds__(kThreads) fa_dq_kernel(const FaArgs a) {
   key_range(a, q0, kTile, kb, ke);
   for (int k0 = kb; k0 < ke; k0 += kCols) {
     __syncthreads();
-    stage<float, HD>(sK, k, hx.k_stride, k0, a.Sk, a.hd);
-    stage<float, HD>(sV, v, hx.k_stride, k0, a.Sk, a.hd);
+    stage<HD>(sK, k, hx.k_stride, k0, a.Sk, a.hd);
+    stage<HD>(sV, v, hx.k_stride, k0, a.Sk, a.hd);
     __syncthreads();
     float s[kRows], dp[kRows];
     dots<HD>(s, sQ + warp * kRows * LD, sK + lane * LD);
@@ -386,8 +371,8 @@ __global__ void __launch_bounds__(kThreads) fa_dkv_kernel(const FaArgs a) {
   const Heads hx = heads(a, b, h, a.hd);
   const float* q = static_cast<const float*>(a.q) + hx.q_off;
   const float* dout = static_cast<const float*>(a.dout) + hx.q_off;
-  stage<float, HD>(sK, static_cast<const float*>(a.k) + hx.k_off, hx.k_stride, k0, a.Sk, a.hd);
-  stage<float, HD>(sV, static_cast<const float*>(a.v) + hx.k_off, hx.k_stride, k0, a.Sk, a.hd);
+  stage<HD>(sK, static_cast<const float*>(a.k) + hx.k_off, hx.k_stride, k0, a.Sk, a.hd);
+  stage<HD>(sV, static_cast<const float*>(a.v) + hx.k_off, hx.k_stride, k0, a.Sk, a.hd);
 
   float dk[kRows][DPL], dv[kRows][DPL];
 #pragma unroll
@@ -401,8 +386,8 @@ __global__ void __launch_bounds__(kThreads) fa_dkv_kernel(const FaArgs a) {
   query_range(a, k0, kTile, qb, qe);
   for (int i0 = qb; i0 < qe; i0 += kCols) {
     __syncthreads();
-    stage<float, HD>(sQ, q, hx.q_stride, i0, a.Sq, a.hd);
-    stage<float, HD>(sDO, dout, hx.q_stride, i0, a.Sq, a.hd);
+    stage<HD>(sQ, q, hx.q_stride, i0, a.Sq, a.hd);
+    stage<HD>(sDO, dout, hx.q_stride, i0, a.Sq, a.hd);
     __syncthreads();
     const int qp = i0 + lane;
     const float lse = qp < a.Sq ? a.lse[row0 + qp] : 0.f;
@@ -438,8 +423,8 @@ __global__ void __launch_bounds__(kThreads) fa_dkv_kernel(const FaArgs a) {
   }
 }
 
-// ---------------------------------------------------- JVP (f32, bf16) --
-template <class T, int HD>
+// --------------------------------------------------------- JVP (f32) --
+template <int HD>
 __global__ void __launch_bounds__(kThreads) fa_jvp_kernel(const FaArgs a) {
   constexpr int LD = HD + 4, DPL = HD / 32;
   extern __shared__ float4 smem4[];
@@ -454,12 +439,12 @@ __global__ void __launch_bounds__(kThreads) fa_jvp_kernel(const FaArgs a) {
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const Heads hx = heads(a, b, h, a.hd);
-  const T* k = static_cast<const T*>(a.k) + hx.k_off;
-  const T* kt = static_cast<const T*>(a.kt) + hx.k_off;
-  const T* v = static_cast<const T*>(a.v) + hx.k_off;
-  const T* vt = static_cast<const T*>(a.vt) + hx.k_off;
-  stage<T, HD>(sQ, static_cast<const T*>(a.q) + hx.q_off, hx.q_stride, q0, a.Sq, a.hd);
-  stage<T, HD>(sQT, static_cast<const T*>(a.qt) + hx.q_off, hx.q_stride, q0, a.Sq, a.hd);
+  const float* k = static_cast<const float*>(a.k) + hx.k_off;
+  const float* kt = static_cast<const float*>(a.kt) + hx.k_off;
+  const float* v = static_cast<const float*>(a.v) + hx.k_off;
+  const float* vt = static_cast<const float*>(a.vt) + hx.k_off;
+  stage<HD>(sQ, static_cast<const float*>(a.q) + hx.q_off, hx.q_stride, q0, a.Sq, a.hd);
+  stage<HD>(sQT, static_cast<const float*>(a.qt) + hx.q_off, hx.q_stride, q0, a.Sq, a.hd);
 
   float acc[kRows][DPL], lse[kRows], t[kRows];
   const int64_t row0 = ((int64_t)b * a.H + h) * a.Sq;
@@ -477,10 +462,10 @@ __global__ void __launch_bounds__(kThreads) fa_jvp_kernel(const FaArgs a) {
   key_range(a, q0, kTile, kb, ke);
   for (int k0 = kb; k0 < ke; k0 += kCols) {
     __syncthreads();
-    stage<T, HD>(sK, k, hx.k_stride, k0, a.Sk, a.hd);
-    stage<T, HD>(sKT, kt, hx.k_stride, k0, a.Sk, a.hd);
-    stage<T, HD>(sV, v, hx.k_stride, k0, a.Sk, a.hd);
-    stage<T, HD>(sVT, vt, hx.k_stride, k0, a.Sk, a.hd);
+    stage<HD>(sK, k, hx.k_stride, k0, a.Sk, a.hd);
+    stage<HD>(sKT, kt, hx.k_stride, k0, a.Sk, a.hd);
+    stage<HD>(sV, v, hx.k_stride, k0, a.Sk, a.hd);
+    stage<HD>(sVT, vt, hx.k_stride, k0, a.Sk, a.hd);
     __syncthreads();
     float s[kRows], st1[kRows], st2[kRows];
     dots<HD>(s, sQ + warp * kRows * LD, sK + lane * LD);
@@ -493,9 +478,9 @@ __global__ void __launch_bounds__(kThreads) fa_jvp_kernel(const FaArgs a) {
       const bool ok = allowed(a, qp, kp);
       const float p = ok ? expf(logit(a, s[r], b, qp, kp) - lse[r]) : 0.f;
       const float rr = ok ? p * ((st1[r] + st2[r]) * a.scale) : 0.f;  // P * S'
-      t[r] += warp_sum(rr);                 // t from the unrounded R
-      wP[r * kCols + lane] = round_to(p, vt);   // P in V's type
-      wR[r * kCols + lane] = round_to(rr, v);   // R in V's type
+      t[r] += warp_sum(rr);
+      wP[r * kCols + lane] = p;
+      wR[r * kCols + lane] = rr;
     }
     __syncwarp();
     accumulate<HD>(acc, wR, sV, lane);   // (P * S') V
@@ -1088,6 +1073,162 @@ __global__ void __launch_bounds__(kThreads) fa_dq_mma(const FaArgs a) {
   }
 }
 
+// S and Ṡ of the warp's 16 query rows (r0 and r0 + 8) against keys [k0, k0
+// + 8 NT) → P = exp(logit − lse) in s and R = P∘(scale·Ṡ) in st, zero where
+// masked, both unrounded; t gets the lane's share of rowsum(R).
+template <bool MASKED, int NT>
+__device__ __forceinline__ void jvp_weights(float (&s)[NT][4], float (&st)[NT][4],
+                                            const FaArgs& a, int b, int r0, int k0, int t,
+                                            const float (&lse)[2], float (&tsum)[2]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qp = r0 + (e >> 1) * 8, kp = k0 + nt * 8 + 2 * t + (e & 1);
+      const bool ok = !MASKED || allowed(a, qp, kp);
+      const float p = ok ? exp_f(logit(a, s[nt][e], b, qp, kp) - lse[e >> 1]) : 0.f;
+      const float r = ok ? p * (st[nt][e] * a.scale) : 0.f;
+      s[nt][e] = p;
+      st[nt][e] = r;
+      tsum[e >> 1] += r;  // t from the unrounded R, as the reference sums it
+    }
+}
+
+// ---------------------------------------------------- JVP (bf16, MMA) --
+// S = Q·Kᵀ and Ṡ = Q̇·Kᵀ + Q·K̇ᵀ (one f32 accumulator) with K and K̇ as B
+// operands read without .trans; g += round(R)·V + round(P)·V̇ into one f32
+// accumulator, V and V̇ read with .trans. Q and Q̇ are staged once; the
+// warp's lse stays in registers.
+template <int HDP, int BK>
+__global__ void __launch_bounds__(kThreads) fa_jvp_mma(const FaArgs a) {
+  constexpr int LD = HDP + 8, KS = HDP / 16, NT = BK / 8, DT = HDP / 8;
+  constexpr int kStage = BK * LD;
+  extern __shared__ float4 smem4[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem4);
+  bf16* sQt = sQ + kBlockRows * LD;  // Q̇
+  bf16* sK = sQt + kBlockRows * LD;  // two stages each
+  bf16* sKt = sK + 2 * kStage;
+  bf16* sV = sKt + 2 * kStage;
+  bf16* sVt = sV + 2 * kStage;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBlockRows;  // longest causal rows first
+  const int warp = threadIdx.x >> 5;
+  const Lanes ln(threadIdx.x & 31);
+  const Heads hx = heads(a, b, h, a.hd);
+  const bf16* ks[4] = {static_cast<const bf16*>(a.k) + hx.k_off,
+                       static_cast<const bf16*>(a.kt) + hx.k_off,
+                       static_cast<const bf16*>(a.v) + hx.k_off,
+                       static_cast<const bf16*>(a.vt) + hx.k_off};
+  // the four key-side tiles of key block k0 into stage st
+  auto stage_keys = [&](int st, int k0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      stage_async<HDP, BK>(sK + (2 * i + st) * kStage, ks[i], hx.k_stride, k0, a.Sk, a.hd);
+  };
+  int kb, ke;
+  key_range(a, q0, kBlockRows, kb, ke);
+  stage_async<HDP, kBlockRows>(sQ, static_cast<const bf16*>(a.q) + hx.q_off, hx.q_stride, q0,
+                               a.Sq, a.hd);
+  stage_async<HDP, kBlockRows>(sQt, static_cast<const bf16*>(a.qt) + hx.q_off, hx.q_stride, q0,
+                               a.Sq, a.hd);
+  if (kb < ke) stage_keys(0, kb);
+  cp_async_commit();
+
+  const int r0 = q0 + warp * 16 + ln.g;  // query of C elements 0, 1; r0 + 8 of 2, 3
+  const int64_t row0 = ((int64_t)b * a.H + h) * a.Sq;
+  float lse[2], tsum[2] = {0.f, 0.f}, g[DT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = r0 + 8 * i;
+    lse[i] = qp < a.Sq ? a.lse[row0 + qp] : 0.f;
+  }
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) g[dt][e] = 0.f;
+  const bf16* wQ = sQ + (warp * 16 + ln.a_row) * LD + ln.a_col;
+  const bf16* wQt = sQt + (warp * 16 + ln.a_row) * LD + ln.a_col;
+  for (int it = 0, k0 = kb; k0 < ke; ++it, k0 += BK) {
+    cp_async_wait_all();  // tile it has landed
+    __syncthreads();      // and every warp is done with tile it - 1's stage
+    const int st = it & 1;
+    if (k0 + BK < ke) stage_keys(st ^ 1, k0 + BK);
+    cp_async_commit();
+    const bf16* cK = sK + st * kStage;
+    const bf16* cKt = sKt + st * kStage;
+    const bf16* cV = sV + st * kStage;
+    const bf16* cVt = sVt + st * kStage;
+
+    float s[NT][4], sd[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = sd[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qf[4], qtf[4];
+      ldsm4(qf, wQ + kk * 16);
+      ldsm4(qtf, wQt + kk * 16);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t kf[4], ktf[4];
+        ldsm4(kf, cK + (np * 16 + ln.b_row) * LD + kk * 16 + ln.b_col);
+        mma16816(s[2 * np], qf, kf[0], kf[1]);
+        mma16816(s[2 * np + 1], qf, kf[2], kf[3]);
+        mma16816(sd[2 * np], qtf, kf[0], kf[1]);
+        mma16816(sd[2 * np + 1], qtf, kf[2], kf[3]);
+        ldsm4(ktf, cKt + (np * 16 + ln.b_row) * LD + kk * 16 + ln.b_col);
+        mma16816(sd[2 * np], qf, ktf[0], ktf[1]);
+        mma16816(sd[2 * np + 1], qf, ktf[2], ktf[3]);
+      }
+    }
+    if (tile_open(a, q0, kBlockRows, k0, BK))
+      jvp_weights<false>(s, sd, a, b, r0, k0, ln.t, lse, tsum);
+    else
+      jvp_weights<true>(s, sd, a, b, r0, k0, ln.t, lse, tsum);
+
+    // g += round(R)·V + round(P)·V̇
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) {
+      uint32_t ra[4], pa[4];
+      c_to_a(ra, sd[2 * j], sd[2 * j + 1]);
+      c_to_a(pa, s[2 * j], s[2 * j + 1]);
+#pragma unroll
+      for (int dd = 0; dd < DT / 2; ++dd) {
+        uint32_t vf[4], vtf[4];
+        ldsm4_t(vf, cV + (j * 16 + ln.a_row) * LD + dd * 16 + ln.a_col);
+        mma16816(g[2 * dd], ra, vf[0], vf[1]);
+        mma16816(g[2 * dd + 1], ra, vf[2], vf[3]);
+        ldsm4_t(vtf, cVt + (j * 16 + ln.a_row) * LD + dd * 16 + ln.a_col);
+        mma16816(g[2 * dd], pa, vtf[0], vtf[1]);
+        mma16816(g[2 * dd + 1], pa, vtf[2], vtf[3]);
+      }
+    }
+  }
+  cp_async_wait_all();
+
+  // g (f32) straight from the C fragments; t from the quad's lane 0
+  float* gg = a.g + hx.q_off;
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+    const int c = dt * 8 + 2 * ln.t;
+    if (c >= a.hd) continue;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qp = r0 + 8 * i;
+      if (qp < a.Sq)
+        *reinterpret_cast<float2*>(gg + (int64_t)qp * hx.q_stride + c) =
+            make_float2(g[dt][2 * i], g[dt][2 * i + 1]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float ti = quad_sum(tsum[i]);
+    const int qp = r0 + 8 * i;
+    if (ln.t == 0 && qp < a.Sq) a.t[row0 + qp] = ti;
+  }
+}
+
 // -------------------------------------------------------------- launch --
 enum Kind { kForward, kDq, kDkv, kJvp };
 
@@ -1105,31 +1246,26 @@ int run(void (*kern)(const FaArgs), size_t smem, int own_rows, int tile, const F
   return (int)cudaGetLastError();
 }
 
-// The FFMA route: all four passes in f32, the JVP in bf16.
-template <class T, int HD>
+// The FFMA route: all four passes in f32.
+template <int HD>
 int launch_ffma(Kind kind, const FaArgs& a, cudaStream_t stream) {
   constexpr int LD = HD + 4;
   void (*kern)(const FaArgs) = nullptr;
   int own_rows = a.Sq, row_tiles = 2, other_tiles = 2, weights = 1;
   switch (kind) {
-    case kDq:
-      if constexpr (std::is_same<T, float>::value) kern = fa_dq_kernel<HD>;
-      break;
-    case kJvp:
-      kern = fa_jvp_kernel<T, HD>; other_tiles = 4; weights = 2;
-      break;
     case kForward:
-      if constexpr (std::is_same<T, float>::value) {
-        kern = fa_forward_kernel<HD>; row_tiles = 1;
-      }
+      kern = fa_forward_kernel<HD>; row_tiles = 1;
+      break;
+    case kDq:
+      kern = fa_dq_kernel<HD>;
+      break;
+    case kDkv:
+      kern = fa_dkv_kernel<HD>; own_rows = a.Sk; weights = 2;
       break;
     default:
-      if constexpr (std::is_same<T, float>::value) {
-        kern = fa_dkv_kernel<HD>; own_rows = a.Sk; weights = 2;
-      }
+      kern = fa_jvp_kernel<HD>; other_tiles = 4; weights = 2;
       break;
   }
-  if (kern == nullptr) return (int)cudaErrorInvalidValue;
   const size_t smem =
       sizeof(float) * ((size_t)(row_tiles * kTile + other_tiles * kCols) * LD +
                        (size_t)weights * kTile * kCols);
@@ -1138,16 +1274,15 @@ int launch_ffma(Kind kind, const FaArgs& a, cudaStream_t stream) {
 
 // The register and shared-memory width: the smallest of 32, 64 and 128 at
 // or above the head dim.
-template <class T>
 int dispatch_ffma(Kind kind, const FaArgs& a, cudaStream_t stream) {
-  if (a.hd <= 32) return launch_ffma<T, 32>(kind, a, stream);
-  if (a.hd <= 64) return launch_ffma<T, 64>(kind, a, stream);
-  return launch_ffma<T, 128>(kind, a, stream);
+  if (a.hd <= 32) return launch_ffma<32>(kind, a, stream);
+  if (a.hd <= 64) return launch_ffma<64>(kind, a, stream);
+  return launch_ffma<128>(kind, a, stream);
 }
 
-// The tensor-core route: bf16 forward, dQ and dK/dV at the head dim padded
-// to HDP, a multiple of 16. Above HDP 64 the other side's tiles are 32 rows
-// (dQ, or dK and dV, and the tile's scores in registers).
+// The tensor-core route: all four bf16 passes at the head dim padded to
+// HDP, a multiple of 16. Above HDP 64 the other side's tiles are 32 rows
+// (dQ, dK/dV and the JVP: their two score tiles in registers).
 template <int HDP>
 int launch_mma(Kind kind, const FaArgs& a, cudaStream_t stream) {
   constexpr int LD = HDP + 8, BT = HDP > 64 ? 32 : 64;
@@ -1163,7 +1298,8 @@ int launch_mma(Kind kind, const FaArgs& a, cudaStream_t stream) {
                  sizeof(bf16) * (size_t)(2 * kBlockRows + 4 * BT) * LD + sizeof(float) * 4 * BT,
                  a.Sk, kBlockRows, a, stream, true);
     default:
-      return (int)cudaErrorInvalidValue;
+      return run(fa_jvp_mma<HDP, BT>, sizeof(bf16) * (size_t)(2 * kBlockRows + 8 * BT) * LD,
+                 a.Sq, kBlockRows, a, stream, true);
   }
 }
 
@@ -1183,9 +1319,8 @@ int dispatch_mma(Kind kind, const FaArgs& a, cudaStream_t stream) {
 // Head dims: any multiple of 8 from 8 to 128.
 int dispatch(Kind kind, const FaArgs* a, cudaStream_t stream) {
   if (a->hd < 8 || a->hd > 128 || a->hd % 8) return (int)cudaErrorInvalidValue;
-  if (a->dtype == 0) return dispatch_ffma<float>(kind, *a, stream);
+  if (a->dtype == 0) return dispatch_ffma(kind, *a, stream);
   if (a->dtype != 1) return (int)cudaErrorInvalidValue;
-  if (kind == kJvp) return dispatch_ffma<bf16>(kind, *a, stream);
   return dispatch_mma(kind, *a, stream);
 }
 

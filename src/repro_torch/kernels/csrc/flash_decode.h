@@ -11,11 +11,9 @@ extern "C" {
 // reference's layout: q (B, H, hd); dense k, v (B, W, KV, hd) with bias
 // (bias_b, W), bias_b 1 (one row for every sequence) or B; paged pools
 // k, v (P, ps, KV, hd) with page_table (B, maxp) int32 and bias
-// (B, maxp * ps). Outputs of the dense kernel, its splits merged: o
-// (B, H, hd) in q's dtype, m and l (B, H) float32. Outputs of the paged
-// kernel, one page per split (ns = maxp): o (B, KV, ns, G, hd) in q's
-// dtype, m and l (B, KV, ns, G) float32. Element type of q, k, v, o:
-// dtype 0 = float32, 1 = bfloat16.
+// (B, maxp * ps). Outputs of both kernels, their splits (dense) or pages
+// (paged) merged: o (B, H, hd) in q's dtype, m and l (B, H) float32.
+// Element type of q, k, v, o: dtype 0 = float32, 1 = bfloat16.
 struct FdArgs {
   const void* q;
   const void* k;
@@ -28,7 +26,7 @@ struct FdArgs {
   int B, H, KV, hd;
   int W;       // dense: keys per sequence
   int bias_b;  // dense: rows of bias (1 or B)
-  int ns;      // splits (dense, 1 to 8) or logical pages (paged)
+  int ns;      // splits (dense, 1 to 8) or logical pages a row (paged, max_pages)
   int span;    // dense: keys per split; paged: page size
   int P;       // paged: pages in the pool
   float scale;
@@ -37,7 +35,8 @@ struct FdArgs {
 
 // Each returns cudaGetLastError() after its launch; cudaErrorInvalidValue
 // for a head dim (any multiple of 8 from 8 to 128 is taken), group size
-// (up to 32), split count (dense: up to 8) or dtype the kernels do not take.
+// (up to 32), split count (dense: up to 8), page size (paged: a multiple
+// of 8 up to 128) or dtype the kernels do not take.
 int fd_dense(const FdArgs* a, cudaStream_t stream);
 int fd_paged(const FdArgs* a, cudaStream_t stream);
 }

@@ -5,11 +5,11 @@ Twins of the Pallas kernels in ``repro/kernels/flash_attention.py``:
 ``flash_attention_dkv`` (per-q-head dk_h, dv_h in f32) and
 ``flash_attention_jvp`` (g, t in f32), with the reference's layout: q
 (B, Sq, H, hd), k/v (B, Sk, KV, hd), lse and Δ (B, H, Sq), bias (B|1, Sq, Sk)
-f32. In bf16 the forward, dQ and dK/dV run on the tensor cores, the JVP in
-f32 FFMA; in f32 all four run in FFMA. They are built into the port's one
-extension (``cg_fused.extension``) at first use. Every wrapper checks device,
-dtype, shape, head dim and contiguity and raises on anything else; it never
-falls back to the plain version.
+f32. In bf16 all four run on the tensor cores; in f32 all four run in f32
+FFMA. They are built into the port's one extension (``cg_fused.extension``)
+at first use. Every wrapper checks device, dtype, shape, head dim and
+contiguity and raises on anything else; it never falls back to the plain
+version.
 """
 from __future__ import annotations
 

@@ -16,17 +16,19 @@ decode mask, shared by the kernels, their plain versions in
 
 ``flash_decode`` and ``flash_decode_paged`` launch the CUDA kernels of
 ``csrc/flash_decode.cu`` (built into the port's one extension,
-``cg_fused.extension``). The dense wrapper keeps the reference's split
-layout (key blocks of ``min(blk_k, max(W, 8))``, the largest divisor of the
-block count that is at most ``n_splits``) and is one launch: the kernel
-merges its splits (at most ``MAX_SPLITS``, one thread-block cluster per
-sequence and kv head) with ``combine_splits``' algebra and returns the
-merged (o, m, l). The paged one takes one page per split and merges the
-per-page partials here, with ``combine_splits``. Each partial o is rounded
-to q's dtype before the merge, as the reference stores it. Every wrapper
-checks device, dtype, shape, head dim, group size, split count and
-contiguity and raises on anything else; it never falls back to the plain
-version.
+``cg_fused.extension``), each one launch that returns the merged (o, m, l):
+the kernel merges its partials with ``combine_splits``' algebra in one
+thread-block cluster per sequence and kv head. The dense wrapper keeps the
+reference's split layout (key blocks of ``min(blk_k, max(W, 8))``, the
+largest divisor of the block count that is at most ``n_splits``; at most
+``MAX_SPLITS`` splits). The paged one takes one page per split, as the
+reference does; the cluster's blocks take runs of pages and fold them in
+page order. Each partial o is rounded to q's dtype before the merge, as the
+reference stores it. ``combine_splits`` itself is kept for the plain
+versions (``ref.flash_decode_split_ref``, ``ref.flash_decode_paged_split_ref``)
+and the cross-shard merge. Every wrapper checks device, dtype, shape, head
+dim, group size, page size, split count and contiguity and raises on
+anything else; it never falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -185,11 +187,11 @@ def flash_decode(q, k, v, bias, *, scale=None, blk_k=128, n_splits=8, return_sta
 
 def flash_decode_paged(q, k_pool, v_pool, page_table, bias, *, scale=None,
                        return_stats=False):
-    """Paged split-K decode, one page per split. q (B, H, hd), k_pool/v_pool
-    (P, page_size, KV, hd) the shared pool, page_table (B, max_pages) int32
-    physical page per logical page (-1 unmapped, read as page 0 and masked
-    by the bias alone), bias (B, max_pages * page_size) f32
-    (``paged_bias``). Returns as ``flash_decode``."""
+    """Paged split-K decode, one page per split, one launch. q (B, H, hd),
+    k_pool/v_pool (P, page_size, KV, hd) the shared pool, page_table
+    (B, max_pages) int32 physical page per logical page (-1 unmapped, read
+    as page 0 and masked by the bias alone), bias (B, max_pages *
+    page_size) f32 (``paged_bias``). Returns as ``flash_decode``."""
     _check_q_kv(q, k_pool, v_pool)
     B, _, hd = q.shape
     ps = k_pool.shape[1]
@@ -204,6 +206,4 @@ def flash_decode_paged(q, k_pool, v_pool, page_table, bias, *, scale=None,
     _check_bias(bias, (B,), page_table.shape[1] * ps, q)
     o, m, l = extension().flash_decode_paged(q, k_pool, v_pool, page_table, bias,
                                              _scale(scale, hd))
-    og, mg, lg = combine_splits(o.float(), m, l)
-    og = og.to(q.dtype)
-    return (og, mg, lg) if return_stats else og
+    return (o, m, l) if return_stats else o

@@ -3,8 +3,9 @@
 (``bicgstab_x_update_ref``, ``bicgstab_residual_dots_ref``, ``dot2_ref`` and,
 for ``ops.gram_block``, ``gram_block_ref``), the four flash-attention
 passes, each with its kernel's own outputs, the dense and paged decode
-(``flash_decode_ref``, ``flash_decode_paged_ref``, and the dense decode
-split and merged as its kernel splits it, ``flash_decode_split_ref``) and
+(``flash_decode_ref``, ``flash_decode_paged_ref``, and each split and
+merged as its kernel splits it, ``flash_decode_split_ref`` and
+``flash_decode_paged_split_ref``) and
 the SSD intra-chunk step (``ssd_intra_ref``).
 
 ``kernels.ops`` runs these for tensors on the CPU; ``chip_smoke.py`` holds
@@ -239,15 +240,38 @@ def flash_decode_split_ref(q, k, v, bias, *, scale=None, blk_k=128, n_splits=8,
     float64 from float64 inputs) and o cast to q's type. Returns as
     ``flash_decode_ref``. The tests and ``chip_smoke.py`` hold the one-launch
     dense kernel against it."""
-    B, H, hd = q.shape
-    W, KV = k.shape[1], k.shape[2]
-    G = H // KV
+    B = q.shape[0]
+    W = k.shape[1]
     ns, span = split_layout(W, blk_k, n_splits)
     bias = bias.expand(B, W)
     parts = [flash_decode_ref(q, k[:, s:s + span], v[:, s:s + span], bias[:, s:s + span],
                               scale=scale, return_stats=True)
              for s in range(0, ns * span, span)]
-    o, m, l = (torch.stack([_up(p[i]).reshape(B, KV, G, *p[i].shape[2:]) for p in parts],
+    return _merge_in_order(parts, q, k.shape[2], return_stats)
+
+
+def flash_decode_paged_split_ref(q, k_pool, v_pool, page_table, bias, *, scale=None,
+                                 return_stats=False):
+    """Paged decode split as the reference splits it, one page per split:
+    each page's partial (o, m, l) from ``flash_decode_ref`` on that page's
+    keys (-1 reads page 0, masked by the bias), o rounded to q's type, then
+    the partials merged in page order with ``combine_splits`` (in f32, in
+    float64 from float64 inputs) and o cast to q's type. Returns as
+    ``flash_decode_ref``. The tests and ``chip_smoke.py`` hold the one-launch
+    paged kernel against it."""
+    ps = k_pool.shape[1]
+    pages = page_table.clamp_min(0).long()
+    parts = [flash_decode_ref(q, k_pool[pages[:, j]], v_pool[pages[:, j]],
+                              bias[:, j * ps:(j + 1) * ps], scale=scale, return_stats=True)
+             for j in range(page_table.shape[1])]
+    return _merge_in_order(parts, q, k_pool.shape[2], return_stats)
+
+
+def _merge_in_order(parts, q, KV, return_stats):
+    """Per-split (o, m, l) partials of ``flash_decode_ref``, in split order,
+    merged with ``combine_splits``; o cast to q's type."""
+    B, H = q.shape[:2]
+    o, m, l = (torch.stack([_up(p[i]).reshape(B, KV, H // KV, *p[i].shape[2:]) for p in parts],
                            dim=2) for i in range(3))
     og, mg, lg = combine_splits(o, m, l)
     og = og.to(q.dtype)

@@ -8,7 +8,10 @@
   reference (bf16 rounding of the per-split partials alone is ~4e-3).
 * The plain split-and-merge of the dense kernel
   (``ref.flash_decode_split_ref``) against the Pallas kernel on one, two and
-  eight splits, a ragged W, wholly masked splits and an idle row.
+  eight splits, a ragged W, wholly masked splits and an idle row; that of
+  the paged kernel (``ref.flash_decode_paged_split_ref``, one page per
+  split) on the reference's paged cases, unmapped holes with an idle row, a
+  table of 20 pages and pages of 8 and 16.
 * The (o, m, l) contract of ``return_stats``, fully masked rows, the mask
   functions ``decode_bias``/``paged_bias``, ``combine_splits`` and
   ``_pick_splits`` against the reference's (masks and split counts exactly).
@@ -109,17 +112,20 @@ def test_flash_decode_plain_matches_reference(case, dtype):
     _close(got, np.asarray(jref.flash_decode_ref(jq, jk, jv, jbias), np.float32), TOL[dtype])
 
 
-def _paged_inputs(case, dtype, seed):
+def _paged_inputs(case, dtype, seed, holes=False):
     B, P, ps, maxp, H, KV, hd, window, seq_lens = case
     rng = np.random.default_rng(100 + seed)
     (jq, q), (jk, kp), (jv, vp) = (_pair(rng.standard_normal(s), dtype)
                                    for s in ((B, H, hd), (P, ps, KV, hd), (P, ps, KV, hd)))
     # the reference test's layout: pages interleaved across the pool, -1
-    # unmapped, and pages a window has rolled past freed
+    # unmapped, and pages a window has rolled past freed; with ``holes``
+    # every third logical page is left unmapped between mapped ones
     tbl = np.full((B, maxp), -1, np.int32)
     nxt = 0
     for b in range(B):
         for j in range(-(-seq_lens[b] // ps)):
+            if holes and j % 3 == 1:
+                continue
             tbl[b, j] = nxt % P
             nxt += 1
     if window is not None:
@@ -213,6 +219,51 @@ def test_flash_decode_split_ref_matches_pallas_kernel(name, dtype):
     if idle:
         assert torch.all(got[0][-1] == 0) and torch.all(got[1][-1] <= fd.NEG_INF / 2)
         assert torch.all(got[2][-1] == 0)
+
+
+# The paged kernel's layouts: (B, P, ps, max_pages, H, KV, hd, window,
+# seq_lens, holes, idle row). The reference's PAGED_CASES; unmapped pages
+# between mapped ones and an idle row; a table wider than 8 pages (20 pages
+# of 8: one cluster block holds three, four to a 32-key tile); pages of 16
+# (two to a tile) behind a window.
+PAGED_SPLIT_CASES = {
+    "paged0": PAGED_CASES[0] + (False, False),
+    "paged1-window": PAGED_CASES[1] + (False, False),
+    "paged2-mha": PAGED_CASES[2] + (False, False),
+    "holes-idle": (3, 40, 16, 12, 4, 2, 32, None, (190, 77, 30), True, True),
+    "wide-ps8": (2, 48, 8, 20, 4, 2, 32, None, (157, 90), False, False),
+    "ps16-window": (2, 24, 16, 9, 6, 2, 32, 50, (140, 33), False, False),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", list(PAGED_SPLIT_CASES))
+def test_flash_decode_paged_split_ref_matches_pallas_kernel(name, dtype):
+    """``ref.flash_decode_paged_split_ref`` (the plain per-page split and
+    merge the one-launch paged kernel is held to on the card) against the
+    Pallas kernel in interpret mode, (o, m, l): o within 1e-5 (f32) and 1e-2
+    (bf16; both round each page's o to bf16) of max|o|, m on live rows and l
+    within 1e-5; an idle row is exactly (0, NEG_INF, 0) on both sides."""
+    *case, holes, idle = PAGED_SPLIT_CASES[name]
+    jargs, args = _paged_inputs(tuple(case), dtype, list(PAGED_SPLIT_CASES).index(name),
+                                holes=holes)
+    B, H, hd = args[0].shape
+    if idle:
+        args = args[:4] + (args[4].clone(),)
+        args[4][-1] = fd.NEG_INF
+        jargs = jargs[:4] + (jnp.asarray(args[4].numpy()),)
+    got = ref.flash_decode_paged_split_ref(*args, return_stats=True)
+    want = jfd.flash_decode_paged(*jargs, interpret=True, return_stats=True)
+    assert got[0].dtype == args[0].dtype and got[0].shape == (B, H, hd)
+    _close(got[0], np.asarray(want[0], np.float32), TOL[dtype])
+    live = np.asarray(want[1]) > fd.NEG_INF / 2
+    assert np.array_equal(got[1].numpy() > fd.NEG_INF / 2, live)
+    _close(got[1][torch.from_numpy(live)], np.asarray(want[1])[live], TOL["float32"])
+    _close(got[2], np.asarray(want[2]), TOL["float32"])
+    if idle:
+        assert torch.all(got[0][-1] == 0) and torch.all(got[1][-1] <= fd.NEG_INF / 2)
+        assert torch.all(got[2][-1] == 0)
+        assert np.all(np.asarray(want[0][-1], np.float32) == 0) and not live[-1].any()
 
 
 @pytest.mark.parametrize("paged", [False, True])
