@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
-"""The flash and decode kernel phases of ``chip_smoke.py`` alone, on one
-NVIDIA GPU.
+"""Kernel phases of ``chip_smoke.py`` alone, on one NVIDIA GPU.
 
-    python3 chip_kernels.py [TREE] [--slice] [--ptxas]
+    python3 chip_kernels.py [TREE] [--slice] [--ptxas] [--ssd] [--gram]
 
 Builds the port's kernels from the sources of TREE (a checkout that holds
 ``chip_smoke.py`` and ``src/repro_torch``; by default the directory of this
-script) and runs that tree's own ``phase_flash`` and ``phase_decode``, gates
-included: on every case of ``FLASH_CASES``, ``DECODE_CASES`` and
-``PAGED_CASES`` (with ``--slice``, on the slices' cases only) and on the
-head-dim cases (hd 112 and 96). ``--ptxas`` also prints the
-tree's ``nvcc -Xptxas -v`` report. Each record's label names the tree, so
-that one command can compare two trees on one card in turns, e.g. a parent
-unpacked with ``git archive`` into ``_archive/parent``:
+script) and runs that tree's own phases, gates included. By default these
+are ``phase_flash`` and ``phase_decode``: on every case of ``FLASH_CASES``,
+``DECODE_CASES`` and ``PAGED_CASES`` (with ``--slice``, on the slices' cases
+only) and on the head-dim cases (hd 112 and 96). ``--ssd`` runs the tree's
+``phase_ssd`` instead (with ``--slice``, on its slice case where the tree's
+``phase_ssd`` takes a list of cases) and ``--gram`` its ``phase_gram`` (the
+s-step Gram shapes); both flags together run both.
+``--ptxas`` also prints the tree's ``nvcc -Xptxas -v`` report. Each
+record's label names the tree, so that one command can compare two trees on
+one card in turns, e.g. a parent unpacked with ``git archive`` into
+``_archive/parent``:
 
     for t in _archive/parent . . _archive/parent; do python3 chip_kernels.py $t --slice; done
+    for t in _archive/parent . . _archive/parent; do
+        python3 chip_kernels.py $t --slice --ssd --gram; done
 
 Exits non-zero without CUDA or when a gate fails.
 """
@@ -22,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import sys
 from pathlib import Path
 
@@ -31,6 +37,8 @@ def main() -> None:
     ap.add_argument("tree", nargs="?", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--slice", action="store_true", help="of the main cases, the slices' only")
     ap.add_argument("--ptxas", action="store_true", help="print nvcc -Xptxas -v of the kernels")
+    ap.add_argument("--ssd", action="store_true", help="run phase_ssd instead")
+    ap.add_argument("--gram", action="store_true", help="run phase_gram instead")
     args = ap.parse_args()
 
     import torch
@@ -50,7 +58,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.kernels import cg_fused
+    from repro_torch.kernels import cg_fused, ref
 
     procs = cs.start_ptxas() if args.ptxas else None
     cg_fused.extension()
@@ -63,6 +71,19 @@ def main() -> None:
         return tuple(c for c in cases if not args.slice or c[0] == "slice")
 
     tag = tree.name if tree != Path(__file__).resolve().parent else "this tree"
+    if args.ssd or args.gram:
+        if args.gram:
+            takes = inspect.signature(cs.phase_gram).parameters
+            kw = {"label": f"gram {tag}"} if "label" in takes else {}
+            print(f"[gram] {tag}", flush=True)
+            cs.phase_gram(torch, cg_fused, ref, **kw)
+        if args.ssd:
+            kw = {"cases": pick(cs.SSD_CASES), "label": f"ssd {tag}"} \
+                if "cases" in inspect.signature(cs.phase_ssd).parameters else {}
+            print(f"[ssd] {tag}", flush=True)
+            cs.phase_ssd(torch, **kw)
+        print(f"[done] {tag}: every gate held", flush=True)
+        return
     cs.phase_flash(torch, cases=pick(cs.FLASH_CASES), label=f"flash {tag}")
     cs.phase_flash(torch, reps_cold=5, reps_warm=10, cases=cs.HEAD_FLASH_CASES,
                    label=f"heads {tag}")

@@ -160,13 +160,15 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 on the tensor cores (dense)
+TF32_FLOPS_PER_S = 495e12   # H100 SXM TF32 on the tensor cores (dense)
 N_MAIN = 1_722_293          # parameters of the TIMIT MLP
 N_RAGGED = 65_537
 TOL = 1e-5
 # Gram shapes of the s-step path: Bi-CG-STAB's (4s+1) x (4s+4) at s = 4 and
-# CG's (2s+1)^2 at s = 8, and the same at s = 2; plus a ragged tail.
+# CG's (2s+1)^2 at s = 8, and the same at s = 2; plus a ragged tail, and the
+# widest block the kernel takes (its general 8 x 8 cut).
 GRAM_SHAPES = ((17, 20, N_MAIN), (17, 17, N_MAIN), (9, 12, N_MAIN), (9, 9, N_MAIN),
-               (9, 17, N_RAGGED))
+               (9, 17, N_RAGGED), (32, 32, N_RAGGED))
 # The s-step configurations: (solver, sstep_s, basis, overlap).
 SSTEP_CONFIGS = (("gn_cg", 8, "newton", False), ("bicgstab", 4, "newton", False),
                  ("gn_cg", 2, "monomial", True), ("bicgstab", 2, "monomial", False))
@@ -194,16 +196,16 @@ def card_line() -> str:
 
 
 # ----------------------------------------------------------------- build --
-PTXAS_SOURCES = ("flash_attention.cu", "flash_decode.cu")
+PTXAS_SOURCES = ("flash_attention.cu", "flash_decode.cu", "ssd_scan.cu", "cg_fused.cu")
 PTXAS_KERNELS = ("fa_forward_mma", "fa_dq_mma", "fa_dkv_mma", "fa_jvp_mma", "fd_dense_kernel",
-                 "fd_paged_kernel")
-NO_SPILL = ("fa_dq_mma", "fa_jvp_mma")  # a spill in an instance of these fails the run
+                 "fd_paged_kernel", "ssd_intra_kernel", "dots_block_partial")
+# A spill in an instance of these fails the run.
+NO_SPILL = ("fa_dq_mma", "fa_jvp_mma", "ssd_intra_kernel", "dots_block_partial")
 
 
 def start_ptxas():
-    """``nvcc -Xptxas -v`` on ``flash_attention.cu`` and on ``flash_decode.cu``
-    (plain C, no PyTorch headers: seconds each), started together beside the
-    extension's build."""
+    """``nvcc -Xptxas -v`` on each of ``PTXAS_SOURCES`` (plain C, no PyTorch
+    headers: seconds each), started together beside the extension's build."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     from repro_torch.kernels import cg_fused
@@ -226,7 +228,18 @@ def _smem_bytes(kernel, args):
     """Dynamic shared memory of one block, the launchers' formulas: (64 +
     4·64)·(HDP + 8)·2 B forward, (128 + 4·BK)·(HDP + 8)·2 B dQ, that + 16·BK
     B dK/dV, (128 + 8·BK)·(HDP + 8)·2 B JVP; the decode kernels' at one round
-    of their ring (``Smem``)."""
+    of their ring (``Smem``); ``ssd_intra_kernel`` and ``dots_block_partial``
+    (whose shared memory follows the launch's shape) at the slices' shapes,
+    (Q, N, P) = (128, 64, 64), and the s-step Gram each instance is cut for
+    (4 stages of 128 columns of the padded rows)."""
+    if kernel == "ssd_intra_kernel":
+        from repro_torch.kernels import ssd_scan
+
+        return ssd_scan.smem_bytes(128, 64, 64)
+    if kernel == "dots_block_partial":  # <RU, RV, warps> at its s-step shape (or 32 x 32)
+        su, sv = {(6, 7): (17, 20), (6, 6): (17, 17), (5, 6): (9, 12),
+                  (5, 5): (9, 9)}.get(tuple(args[:2]), (32, 32))
+        return 4 * 4 * 128 * (args[0] * -(-su // args[0]) + args[1] * -(-sv // args[1]))
     if kernel in ("fd_dense_kernel", "fd_paged_kernel"):
         esz, hd, rpw, wk = args
         rows = 4 // wk * rpw
@@ -240,10 +253,28 @@ def _smem_bytes(kernel, args):
     return 2 * (128 + 4 * args[1]) * ld + (16 * args[1] if kernel == "fa_dkv_mma" else 0)
 
 
+def _ptxas_instance(func):
+    """(kernel, template shown, args) of a mangled entry name, or None."""
+    k = re.search(r"(" + "|".join(PTXAS_KERNELS) + r")I(13__nv_bfloat16|f)?"
+                  r"((?:Li\d+E)+)E", func or "")
+    if k:
+        args = [int(x) for x in re.findall(r"Li(\d+)E", k.group(3))]
+        if k.group(2):
+            args = [2 if k.group(2) == "13__nv_bfloat16" else 4] + args
+        tmpl = ("bf16" if args[0] == 2 else "f32") if k.group(2) else None
+        shown = ", ".join([tmpl] * bool(tmpl) + [str(a) for a in args[bool(tmpl):]])
+        return k.group(1), shown, args
+    k = re.search(r"\d(ssd_intra_kernel)ILb([01])E", func or "")
+    if k:
+        return k.group(1), {"0": "f32 B, C", "1": "bf16 B, C"}[k.group(2)], []
+    return None
+
+
 def print_ptxas(procs):
     """Registers, spills and shared memory of each instance of the four
-    tensor-core flash kernels and of the two decode kernels; fails if one is
-    missing, or if an instance of ``fa_dq_mma`` or ``fa_jvp_mma`` spills."""
+    tensor-core flash kernels, the two decode kernels, ``ssd_intra_kernel``
+    and ``dots_block_partial``; fails if one is missing, or if an instance
+    of a ``NO_SPILL`` kernel spills."""
     seen = set()
     for name, proc in procs:
         out, _ = proc.communicate(timeout=900)
@@ -262,22 +293,17 @@ def print_ptxas(procs):
                 frame = tuple(int(x) for x in m.groups())
                 continue
             m = re.search(r"Used (\d+) registers", line)
-            k = re.search(r"(" + "|".join(PTXAS_KERNELS) + r")I(13__nv_bfloat16|f)?"
-                          r"((?:Li\d+E)+)E", func or "")
-            if not (m and k):
+            inst = _ptxas_instance(func)
+            if not (m and inst):
                 continue
-            args = [int(x) for x in re.findall(r"Li(\d+)E", k.group(3))]
-            if k.group(2):
-                args = [2 if k.group(2) == "13__nv_bfloat16" else 4] + args
+            kernel, shown, args = inst
             stack, st, lo = frame or (None, None, None)
-            tmpl = ("bf16" if args[0] == 2 else "f32") if k.group(2) else None
-            shown = ", ".join([tmpl] * bool(tmpl) + [str(a) for a in args[bool(tmpl):]])
-            print(f"[build] ptxas {k.group(1)}<{shown}>: {m.group(1)} registers, spill stores "
+            print(f"[build] ptxas {kernel}<{shown}>: {m.group(1)} registers, spill stores "
                   f"{st} B, spill loads {lo} B, stack {stack} B, dynamic shared memory "
-                  f"{_smem_bytes(k.group(1), args)} B", flush=True)
-            seen.add(k.group(1))
-            if k.group(1) in NO_SPILL and (st or lo):
-                fail(f"{k.group(1)}<{shown}> spills: {st} B stored, {lo} B loaded")
+                  f"{_smem_bytes(kernel, args)} B", flush=True)
+            seen.add(kernel)
+            if kernel in NO_SPILL and (st or lo):
+                fail(f"{kernel}<{shown}> spills: {st} B stored, {lo} B loaded")
     if seen != set(PTXAS_KERNELS):
         fail(f"ptxas reported {sorted(seen)}, not every kernel of {PTXAS_KERNELS}")
 
@@ -350,7 +376,7 @@ def sstep_krylov_syncs(K, s, solver, basis, overlap):
 
 
 # ---------------------------------------------------------------- phases --
-def phase_gram(torch, cg_fused, ref):
+def phase_gram(torch, cg_fused, ref, label="kernel"):
     """``dots_block`` against ``gram_block_ref`` at the s-step shapes;
     returns the record of the largest shape."""
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -376,7 +402,7 @@ def phase_gram(torch, cg_fused, ref):
         }
         rec["bound_ms"], rec["bound_by"] = bound_ms((su + sv) * n * 4 + su * sv * 4,
                                                     2 * su * sv * n)
-        print(f"[kernel] dots_block: {json.dumps(rec)}", flush=True)
+        print(f"[{label}] dots_block: {json.dumps(rec)}", flush=True)
         if not rec["rel_err"] <= TOL or not rec["rel_err_f64"] <= TOL:
             fail(f"dots_block at {su}x{sv}, n={n}: relative error {rec['rel_err']} "
                  f"(float64: {rec['rel_err_f64']}) > {TOL}")
@@ -1587,8 +1613,10 @@ def phase_serve_checks(torch):
 # SSD cases: (tag, B, nc, H, Q, N, P). The reference's four of
 # tests/test_ssd_kernel.py (chunk 16-128, N 16-64, P 16-64), the smoke
 # config's layer (Q 16, N 16, P 16), a chunk the model's fallback picks for
-# an odd prompt (Q 7) and the slice's prefill: zamba2-7b at full width, 8
-# prompts of 896 tokens (7 chunks of 128, 112 heads of 64, N 64).
+# an odd prompt (Q 7), the widest shape at Q 128 with a last block of one
+# head ("wide"), dims that fill no tile and no 16-byte copy ("odd", also in
+# bf16) and the slice's prefill: zamba2-7b at full width, 8 prompts of 896
+# tokens (7 chunks of 128, 112 heads of 64, N 64).
 SSD_CASES = (
     ("ref-chunk16", 1, 4, 1, 16, 16, 16),
     ("ref-chunk32", 2, 4, 4, 32, 32, 64),
@@ -1596,6 +1624,8 @@ SSD_CASES = (
     ("ref-chunk64", 2, 1, 3, 64, 16, 32),
     ("smoke", 2, 2, 16, 16, 16, 16),
     ("fallback", 2, 3, 4, 7, 16, 16),
+    ("wide", 1, 2, 9, 128, 128, 128),
+    ("odd", 2, 2, 3, 48, 5, 7),
     ("slice", 8, 7, 112, 128, 64, 64),
 )
 SSD_TOL = 1e-5
@@ -1633,6 +1663,23 @@ def ssd_cost(B, nc, H, Q, N, P, bc_bytes):
     return n_bytes, flops
 
 
+def ssd_route_ms(B, nc, H, Q, N, P, bc_bytes):
+    """(ms at the byte bound, ms at the operation bound of the kernel's
+    route): the function's products on the causal triangle, each f32 product
+    as the route runs it on the tensor cores: C·Bᵀ as one bf16 product (bf16
+    B and C) or three TF32 ones, y as three TF32 products, S as two (bf16 B,
+    exact in TF32) or three."""
+    n_bytes, _ = ssd_cost(B, nc, H, Q, N, P, bc_bytes)
+    cb = 2 * N * _tri(Q) * B * nc
+    y = 2 * P * _tri(Q) * B * nc * H
+    st = 2 * N * Q * P * B * nc * H
+    if bc_bytes == 2:
+        ops_s = cb / BF16_FLOPS_PER_S + (3 * y + 2 * st) / TF32_FLOPS_PER_S
+    else:
+        ops_s = 3 * (cb + y + st) / TF32_FLOPS_PER_S
+    return n_bytes / HBM_BYTES_PER_S * 1e3, ops_s * 1e3
+
+
 def _ssd_rel(i, got, want):
     """max |got - want| / max |want| of output i of (y, S, g, l). For g the
     denominator is at least f32's smallest normal, 2^-126: a chunk of 128
@@ -1644,15 +1691,18 @@ def _ssd_rel(i, got, want):
                  / max(float(want.double().abs().max()), floor))
 
 
-def phase_ssd(torch, reps_cold=20, reps_warm=50):
+def phase_ssd(torch, reps_cold=20, reps_warm=50, cases=SSD_CASES, label="ssd"):
     """``ssd_intra`` against ``ssd_intra_ref`` in f32 (TF32 off) and in
-    float64 on every case of ``SSD_CASES``, with log_a = -softplus(x) (the
+    float64 on every case of ``cases`` (``SSD_CASES``), with log_a = -softplus(x) (the
     reference test's draw) and -softplus(x - 2) (the model's regime, dt about
     0.13): y, S, g and l each within 1e-5 of max|.|; the slice's case with
-    bf16 B and C as well, and timed (L2 cold and warm; the plain version).
+    bf16 B and C as well (and on "odd"), the slice's timed (L2 cold and warm;
+    the plain version).
     Then ``ssd_chunked_pallas`` against the plain ``ssd_chunked`` with and
     without h0, within 2e-4 (rtol and atol, the reference test's gate).
-    Returns the slice's record (bf16 B/C, the model's regime)."""
+    Returns the slice's record (bf16 B/C, the model's regime). Its bound is
+    the larger of the byte bound and the operation bound of the kernel's
+    route (``ssd_route_ms``), both kept in the record."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import cg_fused, ops, ref, ssd_scan
@@ -1661,12 +1711,13 @@ def phase_ssd(torch, reps_cold=20, reps_warm=50):
     gen = torch.Generator(device="cuda").manual_seed(13)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     record = None
-    for tag, B, nc, H, Q, N, P in SSD_CASES:
+    for tag, B, nc, H, Q, N, P in cases:
         if cg_fused.extension().ssd_intra_smem_bytes(Q, N, P) != ssd_scan.smem_bytes(Q, N, P):
             fail(f"ssd_intra shared memory at {(Q, N, P)}: the kernel's layout and the "
                  f"wrapper's check differ")
         for regime, shift in (("reference", 0.0), ("model", 2.0)):
-            for bdt in ((torch.float32, torch.bfloat16) if tag == "slice" else (torch.float32,)):
+            for bdt in ((torch.float32, torch.bfloat16) if tag in ("slice", "odd")
+                        else (torch.float32,)):
                 rnd = lambda *s: torch.randn(*s, device="cuda", generator=gen)
                 u, la = rnd(B, nc, H, Q, P), -F.softplus(rnd(B, nc, H, Q) - shift)
                 Bv, Cv = (rnd(B, nc, Q, N) * 0.5).to(bdt), (rnd(B, nc, Q, N) * 0.5).to(bdt)
@@ -1686,12 +1737,14 @@ def phase_ssd(torch, reps_cold=20, reps_warm=50):
                     rec["ms"] = time_cold(torch, kern, flush, reps_cold)
                     rec["ms_l2_warm"] = time_warm(torch, kern, reps_warm)
                     rec["plain_ms"] = time_cold(torch, plain, flush, 5, 2_000_000)
-                    rec["bound_ms"], rec["bound_by"] = bound_ms(
-                        *ssd_cost(B, nc, H, Q, N, P, Bv.element_size()))
+                    t_bytes, t_ops = ssd_route_ms(B, nc, H, Q, N, P, Bv.element_size())
+                    rec["bound_bytes_ms"], rec["bound_ops_ms"] = t_bytes, t_ops
+                    rec["bound_ms"] = max(t_bytes, t_ops)
+                    rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
                     rec["library_ms"] = None  # no single PyTorch call computes this function
                     if bdt == torch.bfloat16:
                         record = rec
-                print(f"[ssd] ssd_intra: {json.dumps(rec)}", flush=True)
+                print(f"[{label}] ssd_intra: {json.dumps(rec)}", flush=True)
                 if not max(rels + rels64) <= SSD_TOL:
                     fail(f"ssd_intra on {tag} ({regime}, {bdt}): relative errors {rels}, "
                          f"against float64 {rels64} > {SSD_TOL}")
@@ -1699,7 +1752,7 @@ def phase_ssd(torch, reps_cold=20, reps_warm=50):
     del flush
     torch.cuda.empty_cache()
 
-    for tag, B, nc, H, Q, N, P in SSD_CASES:
+    for tag, B, nc, H, Q, N, P in cases:
         L = nc * Q
         rnd = lambda *s: torch.randn(*s, device="cuda", generator=gen)
         u, la = rnd(B, L, H, P), -F.softplus(rnd(B, L, H) - 2.0)
@@ -1711,7 +1764,7 @@ def phase_ssd(torch, reps_cold=20, reps_warm=50):
                 want = ssd_chunked(u, la, Bv, Cv, Q, h0=h)
             for g, w in zip(got, want):
                 worst = max(worst, float(((g - w).abs() / (2e-4 + 2e-4 * w.abs())).max()))
-        print(f"[ssd] ssd_chunked_pallas against ssd_chunked on {tag} (L {L}, chunk {Q}), "
+        print(f"[{label}] ssd_chunked_pallas against ssd_chunked on {tag} (L {L}, chunk {Q}), "
               f"with and without h0: worst |diff| / (2e-4 + 2e-4 |plain|) {worst:.3e} "
               f"(limit 1)", flush=True)
         if not worst <= 1.0:

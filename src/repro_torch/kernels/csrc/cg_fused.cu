@@ -22,15 +22,24 @@
 //
 // dots_block is bound by bytes too: at the s-step shapes (s_u <= 17 rows
 // against s_v <= 20, n = 1.7M) it does s_u*s_v / (s_u + s_v) ~ 9 FMAs per
-// 4-byte element read, half the f32 balance. Each element of U and V is read
-// from device memory once: a block stages a column tile of all s_u + s_v
-// rows in shared memory, and every value there feeds s_v (or s_u) FMAs from
-// registers. Warp g of a block owns U rows 2g, 2g+1 against every V row, so
-// its accumulators (2 x MV) stay in registers, and its lanes split the
-// tile's columns. Staging issues eight independent loads per thread before
-// storing any, so a tile costs about one memory latency, not one per load,
-// and up to s_v = 24 two blocks share an SM, so one stages while the other
-// computes.
+// 4-byte element read, half the f32 balance, so what it needs is enough
+// copies in flight and few instructions per element. Each block streams
+// column tiles of all s_u + s_v rows through a ring of kGramStages stages in
+// shared memory, filled by cp.async: while one tile is consumed the next
+// three are in flight (at 17 x 20 a block holds 78 KB of ring and two blocks
+// share an SM, so up to 117 KB of copies an SM). One __syncthreads a tile,
+// and no thread waits for a load it issued in the same step. Rows are copied
+// 4 bytes at a time (cp.async.ca): a row of n = 1,722,293 columns starts at
+// no 16-byte boundary. The product is register-tiled f32 FFMA: warp (a, b)
+// owns a sub-block of U rows against V rows, fitted to the shape (6 x 7 at
+// 17 x 20: 378 FMAs per column against 340 needed; 8 x 8 for shapes outside
+// the s-step ones), each lane its accumulators over its column pairs of
+// every tile (8-byte shared loads), so each value read from shared memory
+// feeds 6 or 7 FMAs. FFMA and not split-TF32 mma.sync: every partial is an
+// exact f32 fma chain, rounded to nearest, where an mma accumulator would
+// sum a 1.7M-long dot product with truncation; and 0.02 ms of FMAs at the
+// f32 rate sit under the 0.076 ms byte bound. The ring's rows are padded to
+// whole sub-blocks with zeros, so no row index is clamped.
 // The TPU kernel zero-padded the rows to 8 and the columns to its 16k block
 // and carried one partial per grid step; here the tail is masked, each
 // block reduces its lanes in a fixed order and writes its (s_u, s_v) partial
@@ -143,103 +152,180 @@ x_update(const float* __restrict__ x, const float* __restrict__ p,
 
 // ---------------------------------------------------------------- Gram --
 constexpr int kGramMaxRows = 32;  // most rows of U and of V
-constexpr int kGramRU = 2;        // U rows per warp
-constexpr int kGramTile = 128;    // columns staged per step
-constexpr int kGramUnroll = 8;    // loads in flight per thread while staging
+constexpr int kGramSide = 8;      // a warp's sub-block: 8 U rows x 8 V rows
+constexpr int kGramTile = 128;    // columns of a stage
+constexpr int kGramStages = 4;    // stages of the ring
 
-// Warp g owns U rows 2g, 2g+1 against every V row; its 32 lanes split the
-// tile's columns, and a warp reduction in a fixed order gives the block's
-// (su, sv) partial, which lane 0 writes to part[blockIdx.x].
-template <int MV>
-__global__ void __launch_bounds__(32 * kGramMaxRows / kGramRU, MV <= 24 ? 2 : 1)
-dots_block_partial(const float* __restrict__ U, const float* __restrict__ V, int su,
-                   int sv, int64_t n, float* __restrict__ part) {
-  __shared__ float tu[kGramMaxRows][kGramTile];
-  __shared__ float tv[kGramMaxRows][kGramTile];
-  const int lane = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * kGramRU;
-  const int total = (su + sv) * kGramTile;
-  float acc[kGramRU][MV];
-#pragma unroll
-  for (int i = 0; i < kGramRU; ++i)
-#pragma unroll
-    for (int j = 0; j < MV; ++j) acc[i][j] = 0.f;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
+// 4 bytes from device to shared memory; with ``ok`` false nothing is read
+// and the destination is zero-filled.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Every group but the newest kGramStages - 2 has landed.
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kGramStages - 2) : "memory");
+}
+
+// How a Gram of su x sv rows is cut among warps: gu x gv warps, warp (a, c)
+// owning ru U rows from a * ru and rv V rows from c * rv (rows past su or sv
+// are zero in the ring).
+struct GramCut {
+  int gu, gv, ru, rv;
+};
+
+// Block b takes column tiles b, b + gridDim.x, ... in order. Warp (a, c)
+// (warp = a * gv + c) owns the RU x RV sub-block of U rows a * RU.. and V
+// rows c * RV..; lane L takes column pairs 2L, 2L + 1 and 64 + 2L, 65 + 2L of
+// each tile (8-byte shared loads). A reduction over the lanes in a fixed
+// order gives the block's (su, sv) partial, which lane 0 writes to
+// part[blockIdx.x]. Up to 9 warps (every s-step shape), two blocks share an
+// SM; the general instance takes up to 16.
+template <int RU, int RV, int kMaxWarps>
+__global__ void __launch_bounds__(32 * kMaxWarps, kMaxWarps <= 9 ? 2 : 1)
+    dots_block_partial(const float* __restrict__ U, const float* __restrict__ V, int su, int sv,
+                       int64_t n, float* __restrict__ part) {
+  extern __shared__ __align__(16) float ring[];
+  const int gu = (su + RU - 1) / RU, gv = (sv + RV - 1) / RV;
+  const int rows = RU * gu + RV * gv;  // rows of a stage
+  const int stage = rows * kGramTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  const int wu = warp / gv, wv = warp - wu * gv;
   const int64_t ntiles = (n + kGramTile - 1) / kGramTile;
-  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int64_t c0 = t * kGramTile;
-    // Stage the tile: kGramUnroll independent loads per thread in flight,
-    // then their stores; the ragged tail reads as zero.
-    for (int base = threadIdx.x; base < total; base += kGramUnroll * blockDim.x) {
-      float val[kGramUnroll];
+  const int mine = (int)((ntiles - 1 - blockIdx.x) / gridDim.x + 1);  // gridDim.x <= ntiles
+
+  // The padding rows stay zero: no copy writes them.
+  for (int idx = threadIdx.x; idx < kGramStages * stage; idx += blockDim.x) {
+    const int r = (idx % stage) / kGramTile;
+    if ((r >= su && r < RU * gu) || r >= RU * gu + sv) ring[idx] = 0.f;
+  }
+
+  // Copies of tile k of this block into stage k % kGramStages: warp w
+  // copies rows w, w + nwarps, ...; a column past n is zero-filled.
+  auto issue = [&](int k) {
+    const int64_t c0 = ((int64_t)blockIdx.x + (int64_t)k * gridDim.x) * kGramTile;
+    float* dst = ring + (k % kGramStages) * stage;
+    const bool full = c0 + kGramTile <= n;
+    for (int r = warp; r < su + sv; r += nwarps) {
+      const float* src = (r < su ? U + (int64_t)r * n : V + (int64_t)(r - su) * n) + c0;
+      float* row = dst + (r < su ? r : RU * gu + r - su) * kGramTile;
 #pragma unroll
-      for (int k = 0; k < kGramUnroll; ++k) {
-        const int idx = base + k * blockDim.x;
-        const int row = idx / kGramTile;
-        const int64_t col = c0 + idx % kGramTile;
-        val[k] = 0.f;
-        if (idx < total && col < n) {
-          val[k] = row < su ? U[(int64_t)row * n + col] : V[(int64_t)(row - su) * n + col];
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kGramUnroll; ++k) {
-        const int idx = base + k * blockDim.x;
-        if (idx < total) {
-          const int row = idx / kGramTile;
-          const int c = idx % kGramTile;
-          if (row < su) tu[row][c] = val[k];
-          else tv[row - su][c] = val[k];
-        }
+      for (int q = 0; q < kGramTile / 32; ++q) {
+        const int c = lane + 32 * q;
+        const bool ok = full || c0 + c < n;
+        cp_async4(row + c, ok ? src + c : U, ok);
       }
     }
-    __syncthreads();
+  };
+
 #pragma unroll
-    for (int k = 0; k < kGramTile / 32; ++k) {
-      const int c = lane + 32 * k;
-      float u[kGramRU];
+  for (int k = 0; k < kGramStages - 1; ++k) {
+    if (k < mine) issue(k);
+    cp_async_commit();
+  }
+  float acc[RU][RV];
 #pragma unroll
-      for (int i = 0; i < kGramRU; ++i) u[i] = r0 + i < su ? tu[r0 + i][c] : 0.f;
+  for (int i = 0; i < RU; ++i)
 #pragma unroll
-      for (int j = 0; j < MV; ++j) {
-        const float v = j < sv ? tv[j][c] : 0.f;
+    for (int j = 0; j < RV; ++j) acc[i][j] = 0.f;
+
+  for (int k = 0; k < mine; ++k) {
+    cp_async_wait_ring();
+    __syncthreads();  // tile k is in; every warp is done with tile k - 1
+    if (k + kGramStages - 1 < mine) issue(k + kGramStages - 1);
+    cp_async_commit();
+    const float* tile = ring + (k % kGramStages) * stage;
+    const float2* tu = reinterpret_cast<const float2*>(tile + RU * wu * kGramTile) + lane;
+    const float2* tv =
+        reinterpret_cast<const float2*>(tile + (RU * gu + RV * wv) * kGramTile) + lane;
 #pragma unroll
-        for (int i = 0; i < kGramRU; ++i) acc[i][j] = fmaf(u[i], v, acc[i][j]);
+    for (int q = 0; q < kGramTile / 64; ++q) {
+      float2 u[RU];
+#pragma unroll
+      for (int i = 0; i < RU; ++i) u[i] = tu[i * (kGramTile / 2) + 32 * q];
+#pragma unroll
+      for (int j = 0; j < RV; ++j) {
+        const float2 v = tv[j * (kGramTile / 2) + 32 * q];
+#pragma unroll
+        for (int i = 0; i < RU; ++i) acc[i][j] = fmaf(u[i].y, v.y, fmaf(u[i].x, v.x, acc[i][j]));
       }
     }
-    __syncthreads();
   }
 
   const int64_t slot = (int64_t)blockIdx.x * su * sv;
 #pragma unroll
-  for (int i = 0; i < kGramRU; ++i)
+  for (int i = 0; i < RU; ++i)
 #pragma unroll
-    for (int j = 0; j < MV; ++j) {
+    for (int j = 0; j < RV; ++j) {
       const float w = warp_sum(acc[i][j]);
-      if (lane == 0 && r0 + i < su && j < sv) part[slot + (r0 + i) * sv + j] = w;
+      const int r = RU * wu + i, c = RV * wv + j;
+      if (lane == 0 && r < su && c < sv) part[slot + r * sv + c] = w;
     }
-}
-
-// out[e] = sum over blocks b = 0, 1, ... of part[b][e], in that order.
-__global__ void __launch_bounds__(kThreads)
-gram_final(const float* __restrict__ part, int nb, int entries, float* __restrict__ out) {
-  for (int e = threadIdx.x; e < entries; e += kThreads) {
-    float acc = 0.f;
-    for (int b = 0; b < nb; ++b) acc += part[(int64_t)b * entries + e];
-    out[e] = acc;
-  }
 }
 
 using GramKernel = void (*)(const float*, const float*, int, int, int64_t, float*);
 
-GramKernel gram_kernel(int sv) {
-  if (sv <= 8) return dots_block_partial<8>;
-  if (sv <= 16) return dots_block_partial<16>;
-  if (sv <= 24) return dots_block_partial<24>;
-  return dots_block_partial<32>;
+// The instance cut for an s-step Gram (17 x 20, 17 x 17, 9 x 12, 9 x 9 rows
+// and the like), or none.
+GramKernel fitted_kernel(int ru, int rv) {
+  if (ru == 6 && rv == 7) return dots_block_partial<6, 7, 9>;
+  if (ru == 6 && rv == 6) return dots_block_partial<6, 6, 9>;
+  if (ru == 5 && rv == 6) return dots_block_partial<5, 6, 9>;
+  if (ru == 5 && rv == 5) return dots_block_partial<5, 5, 9>;
+  return nullptr;
 }
 
-int gram_threads(int su) { return 32 * ((su + kGramRU - 1) / kGramRU); }
+// The cut of an su x sv Gram: up to 8 rows a side for each warp, evened out
+// where an instance fits it, else 8 x 8.
+GramCut gram_cut(int su, int sv) {
+  GramCut c;
+  c.gu = (su + kGramSide - 1) / kGramSide;
+  c.gv = (sv + kGramSide - 1) / kGramSide;
+  c.ru = (su + c.gu - 1) / c.gu;
+  c.rv = (sv + c.gv - 1) / c.gv;
+  if (c.gu * c.gv > 9 || !fitted_kernel(c.ru, c.rv)) c.ru = c.rv = kGramSide;
+  return c;
+}
+
+GramKernel gram_kernel(const GramCut& c) {
+  const GramKernel k = c.gu * c.gv <= 9 ? fitted_kernel(c.ru, c.rv) : nullptr;
+  return k ? k : dots_block_partial<kGramSide, kGramSide, 16>;
+}
+
+size_t gram_smem_bytes(const GramCut& c) {
+  return sizeof(float) * kGramStages * kGramTile * (size_t)(c.gu * c.ru + c.gv * c.rv);
+}
+
+// out[e] = sum over blocks b = 0, 1, ... of part[b][e], in that order; the
+// loads of kAhead slots are issued before their adds.
+__global__ void __launch_bounds__(kThreads)
+gram_final(const float* __restrict__ part, int nb, int entries, float* __restrict__ out) {
+  constexpr int kAhead = 64;
+  for (int e = threadIdx.x; e < entries; e += kThreads) {
+    const float* p = part + e;
+    float acc = 0.f;
+    int b = 0;
+    for (; b + kAhead <= nb; b += kAhead) {
+      float v[kAhead];
+#pragma unroll
+      for (int i = 0; i < kAhead; ++i) v[i] = __ldg(p + (int64_t)(b + i) * entries);
+#pragma unroll
+      for (int i = 0; i < kAhead; ++i) acc += v[i];
+    }
+    for (; b < nb; ++b) acc += __ldg(p + (int64_t)b * entries);
+    out[e] = acc;
+  }
+}
 
 int blocks_for(int64_t n, int cap) {
   const int64_t b = (n + kThreads - 1) / kThreads;
@@ -283,16 +369,21 @@ int cg_gram_blocks(int su, int sv, int64_t n) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gram_kernel(sv),
-                                                gram_threads(su), 0);
+  const GramCut c = gram_cut(su, sv);
+  const size_t smem = gram_smem_bytes(c);
+  cudaFuncSetAttribute(gram_kernel(c), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gram_kernel(c), 32 * c.gu * c.gv, smem);
   const int64_t resident = (int64_t)(per_sm < 1 ? 1 : per_sm) * (sms < 1 ? 1 : sms);
   const int64_t ntiles = (n + kGramTile - 1) / kGramTile;
   return (int)(ntiles < resident ? ntiles : resident);
 }
 
+// Launches after cg_gram_blocks(su, sv, n), which sets the kernel's shared
+// memory limit; nb must be at most its result.
 void cg_dots_block_partial(const float* U, const float* V, int su, int sv, int64_t n,
                            float* part, int nb, cudaStream_t stream) {
-  gram_kernel(sv)<<<nb, gram_threads(su), 0, stream>>>(U, V, su, sv, n, part);
+  const GramCut c = gram_cut(su, sv);
+  gram_kernel(c)<<<nb, 32 * c.gu * c.gv, gram_smem_bytes(c), stream>>>(U, V, su, sv, n, part);
 }
 
 void cg_gram_final(const float* part, int nb, int entries, float* out,

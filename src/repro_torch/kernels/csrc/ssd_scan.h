@@ -29,7 +29,7 @@ struct SsdArgs {
 int64_t ssd_intra_smem_bytes(int Q, int N, int P);
 
 // Returns cudaGetLastError() after the launch; cudaErrorInvalidValue for a
-// shape or dtype the kernel does not take (1 <= Q, N, P <= 128 and
-// ssd_intra_smem_bytes(Q, N, P) <= 232448).
+// shape or dtype the kernel does not take (1 <= Q <= 128, 1 <= N, P <= 256
+// and ssd_intra_smem_bytes(Q, N, P) <= 232448).
 int ssd_intra(const SsdArgs* a, cudaStream_t stream);
 }

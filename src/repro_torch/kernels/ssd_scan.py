@@ -5,7 +5,8 @@
 port's one extension, ``cg_fused.extension``): for each (batch, chunk,
 head), with B and C shared across heads, l = cumsum(log_a), y =
 ((C·Bᵀ) ∘ exp(lᵢ − lⱼ) ∘ causal)·u, the chunk state S = Bᵀ(u ∘ exp(l_Q − l))
-and g = exp(l_Q), all f32. It checks device, dtype, shape, the (Q, N, P) it
+and g = exp(l_Q), all f32; the products run on the tensor cores in split
+TF32 (bf16 for C·Bᵀ with bf16 B and C). It checks device, dtype, shape, the (Q, N, P) it
 takes and contiguity and raises on anything else; it never falls back to
 the plain version.
 
@@ -21,25 +22,35 @@ import torch
 
 from .cg_fused import extension
 
-MAX_DIM = 128                # most Q (chunk), N (state) and P (head dim)
+MAX_Q = 128                  # most Q (chunk)
+MAX_NP = 256                 # most N (state) and P (head dim)
 MAX_SMEM_BYTES = 232_448     # shared memory one block may use on Hopper
+HEADS_PER_BLOCK = 8          # heads of one (batch, chunk) a kernel block takes
 BC_DTYPES = (torch.float32, torch.bfloat16)
 
 
+def _round_up(x, m):
+    return -(-x // m) * m
+
+
 def smem_bytes(Q, N, P):
-    """Shared memory of one kernel block (``csrc/ssd_scan.cu``): B and C
-    (Q × (N+1) each), two packed causal triangles of Q(Q+1)/2, u (Q × (P+1))
-    and two rows of Q, all f32."""
-    return 4 * (2 * Q * (N + 1) + Q * (Q + 1) + Q * (P + 1) + 2 * Q)
+    """Shared memory of one kernel block (``csrc/ssd_scan.cu``), all f32: B
+    (Qp × LN), two slots of u (Qp × LP each), and l and w of the block's
+    heads (8 × Qp each); Qp and Np are Q and N rounded up to 16, Pp is P
+    rounded up to 8, and LN, LP are Np, Pp rounded up to 32, plus 4."""
+    Qp, Np, Pp = _round_up(Q, 16), _round_up(N, 16), _round_up(P, 8)
+    LN, LP = _round_up(Np, 32) + 4, _round_up(Pp, 32) + 4
+    return 4 * (Qp * LN + 2 * Qp * LP + 2 * HEADS_PER_BLOCK * Qp)
 
 
 def check_dims(Q, N, P):
-    """Raise unless the kernel takes chunk Q, state N and head dim P: each
-    from 1 to ``MAX_DIM``, with ``smem_bytes(Q, N, P)`` at most
-    ``MAX_SMEM_BYTES`` (at Q = 128, 2N + P ≤ 320)."""
-    if not (1 <= Q <= MAX_DIM and 1 <= N <= MAX_DIM and 1 <= P <= MAX_DIM):
-        raise ValueError(f"ssd_intra takes Q, N and P from 1 to {MAX_DIM}, got Q {Q}, N {N}, "
-                         f"P {P}")
+    """Raise unless the kernel takes chunk Q (1 to ``MAX_Q``), state N and
+    head dim P (1 to ``MAX_NP``) with ``smem_bytes(Q, N, P)`` at most
+    ``MAX_SMEM_BYTES`` (at Q = 128 every N, P ≤ 128 fits; N = P = 256 does
+    not)."""
+    if not (1 <= Q <= MAX_Q and 1 <= N <= MAX_NP and 1 <= P <= MAX_NP):
+        raise ValueError(f"ssd_intra takes Q from 1 to {MAX_Q} and N, P from 1 to {MAX_NP}, "
+                         f"got Q {Q}, N {N}, P {P}")
     if smem_bytes(Q, N, P) > MAX_SMEM_BYTES:
         raise ValueError(f"ssd_intra at Q {Q}, N {N}, P {P} needs {smem_bytes(Q, N, P)} bytes "
                          f"of shared memory, more than {MAX_SMEM_BYTES}")

@@ -21,10 +21,12 @@ ALPHA, GAMMA = 0.37, -1.3
 
 @pytest.fixture(autouse=True, scope="module")
 def _two_threads():
-    prev = torch.get_num_threads()
+    prev = torch.get_num_threads(), torch.get_float32_matmul_precision()
     torch.set_num_threads(2)
+    torch.set_float32_matmul_precision("highest")
     yield
-    torch.set_num_threads(prev)
+    torch.set_num_threads(prev[0])
+    torch.set_float32_matmul_precision(prev[1])
 
 
 def _vecs(n, seed):
@@ -112,6 +114,84 @@ def test_gram_plain_version_matches_pallas_interpret(n, su, sv):
     assert got.shape == (su, sv)
     assert np.max(np.abs(got - exact)) <= 1e-5 * scale
     assert np.max(np.abs(got - want)) <= 1e-5 * scale
+
+
+def _gram_ring(U, V, nb, tile=128, lanes=32):
+    """U @ V.T summed in the order of the kernel (``csrc/cg_fused.cu``
+    ``dots_block_partial``): block b takes column tiles b, b + nb, ...; lane
+    L of a block its columns 2L, 2L + 1, 64 + 2L, 65 + 2L of each tile, in
+    that order, as one f32 fma chain (each fma exact before its one
+    rounding); the lanes are added by the shuffle tree (16, 8, 4, 2, 1) and
+    the blocks in order."""
+    su, n = U.shape
+    K = -(-(-(-n // tile)) // nb)
+    shape = (K, nb, tile // (2 * lanes), lanes, 2)
+    Up = torch.nn.functional.pad(U, (0, K * nb * tile - n)).reshape(su, *shape).double()
+    Vp = torch.nn.functional.pad(V, (0, K * nb * tile - n)).reshape(V.shape[0], *shape).double()
+    acc = torch.zeros((su, V.shape[0], nb, lanes), dtype=torch.float32)
+    for k in range(K):
+        for q in range(tile // (2 * lanes)):
+            for e in range(2):
+                prod = Up[:, None, k, :, q, :, e] * Vp[None, :, k, :, q, :, e]
+                acc = (acc.double() + prod).float()
+    for off in (16, 8, 4, 2, 1):
+        acc = acc[..., :off] + acc[..., off:2 * off]
+    out = torch.zeros((su, V.shape[0]), dtype=torch.float32)
+    for b in range(nb):
+        out = out + acc[:, :, b, 0]
+    return out
+
+
+def _tf32(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: to nearest on the 13
+    dropped bits of the significand, ties away from zero."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _gram_split_tf32(U, V):
+    """U @ V.T as three TF32 products (lo·hi + hi·lo, then hi·hi), f32 sums."""
+    Uh, Vh = _tf32(U), _tf32(V)
+    Ul, Vl = _tf32(U - Uh), _tf32(V - Vh)
+    return (Ul @ Vh.T + Uh @ Vl.T) + Uh @ Vh.T
+
+
+GRAM_SCHEME_NS = [16_385, 70_000]
+
+
+@pytest.mark.parametrize("su,sv", GRAM_ROWS)
+@pytest.mark.parametrize("n", GRAM_SCHEME_NS)
+@pytest.mark.parametrize("scheme", ["ffma-ring", "split-tf32"])
+def test_gram_numeric_schemes_match_pallas_interpret(scheme, n, su, sv):
+    """The kernel's scheme (f32 FMA chains in the ring's order, with 264
+    blocks: two on each of an H100's 132 SMs) and the split-TF32 product
+    that the kernel could have used instead, emulated in torch, against
+    ``repro.kernels.ops.gram_block`` in interpret mode and float64, to 1e-5
+    of max|G|."""
+    rng = np.random.default_rng(7 * n + 31 * su + sv)
+    U = rng.standard_normal((su, n)).astype(np.float32)
+    V = rng.standard_normal((sv, n)).astype(np.float32)
+    tU, tV = torch.from_numpy(U), torch.from_numpy(V)
+    got = (_gram_ring(tU, tV, min(264, -(-n // 128))) if scheme == "ffma-ring"
+           else _gram_split_tf32(tU, tV)).numpy()
+    want = np.asarray(jops.gram_block(jnp.asarray(U), jnp.asarray(V), interpret=True))
+    exact = U.astype(np.float64) @ V.astype(np.float64).T
+    scale = float(np.max(np.abs(exact)))
+    assert got.shape == (su, sv)
+    assert np.max(np.abs(got - exact)) <= 1e-5 * scale
+    assert np.max(np.abs(got - want)) <= 1e-5 * scale
+
+
+def test_plain_tf32_gram_misses_the_gate():
+    """One TF32 product (no split) is off by more than 1e-5 of max|G|."""
+    rng = np.random.default_rng(5)
+    U = rng.standard_normal((9, 70_000)).astype(np.float32)
+    V = rng.standard_normal((17, 70_000)).astype(np.float32)
+    want = np.asarray(jops.gram_block(jnp.asarray(U), jnp.asarray(V), interpret=True))
+    scale = float(np.max(np.abs(want)))
+    one = (_tf32(torch.from_numpy(U)) @ _tf32(torch.from_numpy(V)).T).numpy()
+    split = _gram_split_tf32(torch.from_numpy(U), torch.from_numpy(V)).numpy()
+    assert np.max(np.abs(one - want)) > 10 * 1e-5 * scale
+    assert np.max(np.abs(split - want)) <= 1e-5 * scale
 
 
 @pytest.mark.parametrize("su,sv", [(33, 36), (5, 40), (64, 3), (32, 32)])

@@ -89,6 +89,81 @@ def test_plain_ssd_intra_matches_the_pallas_kernel(case):
     assert ops.LAUNCHES["ssd_intra"] == 0  # the CPU runs no kernel
 
 
+def _tf32(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: to nearest on the 13
+    dropped bits of the significand, ties away from zero."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_split(a, b):
+    """a @ b as the kernel forms an f32 product on the tensor cores: each
+    operand split as hi = tf32(x), lo = tf32(x - hi), lo·hi + hi·lo summed
+    first, then hi·hi, every sum in f32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _mm_tf32(a, b):
+    """a @ b as one TF32 product (operands rounded to TF32, f32 sums)."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _ssd_intra_emulated(u, log_a, Bv, Cv, mm):
+    """(y, S) of the SSD intra-chunk step with every product formed by
+    ``mm``: C·Bᵀ, the decayed causal triangle D in f32 (the mask selects),
+    y = D·u and S = Bᵀ(u ∘ w), as ``csrc/ssd_scan.cu`` forms them."""
+    l = torch.cumsum(log_a.double(), -1).float()
+    Q = u.shape[3]
+    cb = mm(Cv, Bv.transpose(-1, -2))[:, :, None]
+    causal = torch.ones((Q, Q), dtype=torch.bool).tril()
+    D = torch.where(causal, cb * torch.exp(l[..., :, None] - l[..., None, :]), 0.0)
+    w = torch.exp(l[..., -1:] - l)
+    return mm(D, u), mm(Bv.transpose(-1, -2)[:, :, None], u * w[..., None])
+
+
+def _ssd_case(case, regime):
+    """The reference test's inputs of one case, in the kernel's layout; the
+    "model" regime draws log_a = -softplus(x - 2) from the same x."""
+    B, L, H, N, P, chunk = case
+    x = _inputs(B, L, H, N, P)
+    if regime == "model":
+        ks = jax.random.split(jax.random.PRNGKey(L + H), 5)
+        x["log_a"] = -jax.nn.softplus(jax.random.normal(ks[1], (B, L, H)) - 2.0)
+    nc, Q = L // chunk, chunk
+    u = jnp.asarray(x["u"]).reshape(B, nc, Q, H, P).transpose(0, 1, 3, 2, 4)
+    la = jnp.asarray(x["log_a"]).reshape(B, nc, Q, H).transpose(0, 1, 3, 2)
+    Bv, Cv = (x[k].reshape(B, nc, Q, N) for k in ("Bv", "Cv"))
+    return u, la, Bv, Cv
+
+
+@pytest.mark.parametrize("regime", ["reference", "model"])
+@pytest.mark.parametrize("case", CASES, ids=[f"chunk{c[-1]}" for c in CASES])
+def test_split_tf32_ssd_intra_matches_the_pallas_kernel(case, regime):
+    """The kernel's numeric scheme (split TF32 products, decay applied to
+    C·Bᵀ in f32), emulated in torch, against the reference's Pallas kernel
+    in interpret mode: y and S within 1e-5 of their largest magnitude, in
+    both log_a regimes."""
+    u, la, Bv, Cv = _ssd_case(case, regime)
+    want = j_ssd_intra(u, la, Bv, Cv, interpret=True)
+    y, S = _ssd_intra_emulated(*(_t(a) for a in (u, la, Bv, Cv)), _mm_split)
+    assert _rel(y, want[0]) <= TOL
+    assert _rel(S, want[1]) <= TOL
+
+
+def test_plain_tf32_ssd_intra_misses_the_gate():
+    """One TF32 product (no split) is not enough: y is off by far more than
+    1e-5 of max|y| on the reference's chunk-128 case, which the split
+    scheme holds."""
+    u, la, Bv, Cv = _ssd_case(CASES[2], "reference")
+    want = j_ssd_intra(u, la, Bv, Cv, interpret=True)
+    args = [_t(a) for a in (u, la, Bv, Cv)]
+    y1, S1 = _ssd_intra_emulated(*args, _mm_tf32)
+    y3, S3 = _ssd_intra_emulated(*args, _mm_split)
+    assert _rel(y1, want[0]) > 10 * TOL and _rel(S1, want[1]) > 10 * TOL
+    assert _rel(y3, want[0]) <= TOL and _rel(S3, want[1]) <= TOL
+
+
 def test_plain_ssd_intra_rounds_the_cumsum_once_and_runs_in_float64():
     """l is the float64 cumsum rounded to f32 (the kernel's sum), and a
     float64 call computes every output in float64."""
@@ -198,7 +273,7 @@ def test_ssd_chunked_pallas_is_forward_only():
 
 @pytest.mark.parametrize("shape,bdtype,match", [
     ((1, 1, 2, 129, 16), torch.float32, "from 1 to 128"),
-    ((1, 1, 2, 128, 128), torch.float32, "shared memory"),
+    ((1, 1, 2, 128, 256), torch.float32, "shared memory"),
     ((1, 1, 2, 16, 16), torch.float16, "float32 or both bfloat16"),
 ], ids=["chunk", "smem", "dtype"])
 def test_ssd_intra_wrapper_rejects_what_the_kernel_does_not_take(shape, bdtype, match,
@@ -207,7 +282,7 @@ def test_ssd_intra_wrapper_rejects_what_the_kernel_does_not_take(shape, bdtype, 
     and before any build."""
     monkeypatch.setattr(torch.Tensor, "device", property(lambda self: torch.device("cuda")))
     B, nc, H, Q, P = shape
-    N = 128 if match == "shared memory" else 16
+    N = 256 if match == "shared memory" else 16
     u, la = torch.zeros(shape), torch.zeros((B, nc, H, Q))
     Bv = torch.zeros((B, nc, Q, N), dtype=bdtype)
     with pytest.raises((ValueError, TypeError), match=match):
@@ -221,7 +296,7 @@ def test_ssd_intra_wrapper_refuses_cpu_tensors_without_a_build():
         ssd_scan.ssd_intra(t, torch.zeros((1, 1, 1, 4)), torch.zeros((1, 1, 4, 4)),
                            torch.zeros((1, 1, 4, 4)))
     assert cg_fused._ext is None
-    assert ssd_scan.smem_bytes(128, 64, 64) == 166_912  # the slice's shape: 163 KB
+    assert ssd_scan.smem_bytes(128, 64, 64) == 112_640  # the slice's shape: two blocks an SM
 
 
 # ---------------------------------------------------------- Mamba2 block --
