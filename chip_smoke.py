@@ -14,11 +14,17 @@ Phases, each printed on lines of its own; any failure exits non-zero:
              the two one-launch decode kernels (dense, paged; a spill in dQ
              or the JVP fails); print the build time and the card's name and
              power limit.
-2. kernels — each Krylov kernel against its plain PyTorch version on the card
-             at n = 1,722,293 (the TIMIT MLP's parameter count) and n = 65,537:
-             relative error (≤ 1e-5), time with L2 cold and warm, the plain
-             version's time, a library yardstick where one exists, and the
-             bound (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s).
+2. kernels — each Krylov kernel against its plain PyTorch version and
+             float64 on the card at n = 1,722,293 (the TIMIT MLP's parameter
+             count) and n = 65,537, and at 1,722,293 on views at element
+             offsets (1, 1, 1) and (1, 2, 0) into larger tensors: relative
+             error (≤ 1e-5), the same bits on repeated calls, time with L2
+             cold and warm, the plain version's time, a library yardstick
+             where one exists, and the bound (bytes over 3.35 TB/s or f32
+             operations over 67 TFLOP/s). ``dot2`` and ``x_update`` also at
+             n = 464,118,784 (the transformer slice's flat vectors) under the
+             same gates: ms with L2 cold, achieved GB/s, and two
+             ``torch.dot`` calls beside ``dot2``.
    The Gram kernel ``dots_block`` is held against its plain version at the
    s-step path's shapes: (17, 20), (17, 17), (9, 12) and (9, 9) rows at
    n = 1,722,293 and (9, 17) at n = 65,537, relative error ≤ 1e-5 of max|G|,
@@ -54,11 +60,12 @@ Phases, each printed on lines of its own; any failure exits non-zero:
              1e-4), standard and s-step, and the card against the CPU's plain
              versions on a small MLP (within 1e-4), standard and s-step.
 6. profile — one step under ``torch.profiler``: device-busy share of the step
-             wall and the top device kernels; then the step wall per
-             curvature mode; then a gn_cg s=8 newton step against a standard
-             gn_cg step at 16 Krylov iterations, each with its wall, busy
-             share, top kernels and host reads (synchronizing calls counted
-             with ``torch.cuda.set_sync_debug_mode``).
+             wall, the top device kernels, and each Krylov kernel's launches,
+             which must equal its wrapper's calls in the step; then the step
+             wall per curvature mode; then a gn_cg s=8 newton step against a
+             standard gn_cg step at 16 Krylov iterations, each with its wall,
+             busy share, top kernels and host reads (synchronizing calls
+             counted with ``torch.cuda.set_sync_debug_mode``).
 7. transformer — the transformer main path through
              ``repro_torch.launch.train.train``: Qwen1.5-0.5B at full width
              and depth (464,118,784 parameters, bf16, random weights from
@@ -198,9 +205,15 @@ def card_line() -> str:
 # ----------------------------------------------------------------- build --
 PTXAS_SOURCES = ("flash_attention.cu", "flash_decode.cu", "ssd_scan.cu", "cg_fused.cu")
 PTXAS_KERNELS = ("fa_forward_mma", "fa_dq_mma", "fa_dkv_mma", "fa_jvp_mma", "fd_dense_kernel",
-                 "fd_paged_kernel", "ssd_intra_kernel", "dots_block_partial")
+                 "fd_paged_kernel", "ssd_intra_kernel", "dots_block_partial", "dot2_single",
+                 "x_update")
 # A spill in an instance of these fails the run.
-NO_SPILL = ("fa_dq_mma", "fa_jvp_mma", "ssd_intra_kernel", "dots_block_partial")
+NO_SPILL = ("fa_dq_mma", "fa_jvp_mma", "ssd_intra_kernel", "dots_block_partial", "dot2_single",
+            "x_update")
+# The labels of the instances of the kernels templated on one bool.
+BOOL_INSTANCES = {"ssd_intra_kernel": ("f32 B, C", "bf16 B, C"),
+                  "dot2_single": ("4-byte body", "16-byte body"),
+                  "x_update": ("4-byte body", "16-byte body")}
 
 
 def start_ptxas():
@@ -232,6 +245,8 @@ def _smem_bytes(kernel, args):
     (whose shared memory follows the launch's shape) at the slices' shapes,
     (Q, N, P) = (128, 64, 64), and the s-step Gram each instance is cut for
     (4 stages of 128 columns of the padded rows)."""
+    if kernel in ("dot2_single", "x_update"):
+        return 0
     if kernel == "ssd_intra_kernel":
         from repro_torch.kernels import ssd_scan
 
@@ -264,17 +279,17 @@ def _ptxas_instance(func):
         tmpl = ("bf16" if args[0] == 2 else "f32") if k.group(2) else None
         shown = ", ".join([tmpl] * bool(tmpl) + [str(a) for a in args[bool(tmpl):]])
         return k.group(1), shown, args
-    k = re.search(r"\d(ssd_intra_kernel)ILb([01])E", func or "")
+    k = re.search(r"\d(" + "|".join(BOOL_INSTANCES) + r")ILb([01])E", func or "")
     if k:
-        return k.group(1), {"0": "f32 B, C", "1": "bf16 B, C"}[k.group(2)], []
+        return k.group(1), BOOL_INSTANCES[k.group(1)][int(k.group(2))], []
     return None
 
 
 def print_ptxas(procs):
     """Registers, spills and shared memory of each instance of the four
-    tensor-core flash kernels, the two decode kernels, ``ssd_intra_kernel``
-    and ``dots_block_partial``; fails if one is missing, or if an instance
-    of a ``NO_SPILL`` kernel spills."""
+    tensor-core flash kernels, the two decode kernels, ``ssd_intra_kernel``,
+    ``dots_block_partial``, ``dot2_single`` and ``x_update``; fails if one is
+    missing, or if an instance of a ``NO_SPILL`` kernel spills."""
     seen = set()
     for name, proc in procs:
         out, _ = proc.communicate(timeout=900)
@@ -412,47 +427,85 @@ def phase_gram(torch, cg_fused, ref, label="kernel"):
     return first
 
 
-def phase_kernels(torch, cg_fused, ref):
-    """Each kernel against its plain version; returns records keyed by name."""
+# Views of the Krylov kernels' inputs at element offsets into tensors of
+# n + 3: all at 1 (16-byte body after a head of 3 elements) and at unequal
+# offsets (the 4-byte body), as rows of an (s, n) block of odd n lie.
+KRYLOV_OFFSETS = ((0, 0, 0), (1, 1, 1), (1, 2, 0))
+
+
+def _krylov_cases(torch, cg_fused, ref, x, p, s, alpha, gamma, names):
+    """name: (kernel call, plain call, float64 call, Σ|terms| per output,
+    bytes, flops, library call or None, yardstick) for the Krylov kernels in
+    ``names``. The yardstick is a (key, call) of one PyTorch pass over half
+    the kernel's bytes, timed under the same harness: ``p.sum()`` beside
+    ``dot2``, a copy of x beside ``x_update``."""
+    n = x.shape[0]
+    d = lambda t: t.double()
+    copy = torch.empty_like(x) if "x_update" in names else None
+    cases = {
+        "dot2": (
+            lambda: cg_fused.dot2(x, p), lambda: ref.dot2_ref(x, p),
+            lambda: [(d(x) * d(p)).sum(), (d(p) * d(p)).sum()],
+            lambda: [(x * p).abs().sum(), (p * p).sum()],
+            2 * n * 4 + 2 * 4, 4 * n,
+            lambda: (torch.dot(x, p), torch.dot(p, p)), ("sum_ms", lambda: p.sum()),
+        ),
+        "x_update": (
+            lambda: [cg_fused.x_update(x, p, s, alpha, gamma)],
+            lambda: [ref.x_update_ref(x, p, s, alpha, gamma)],
+            lambda: [d(x) + d(alpha) * d(p) + d(gamma) * d(s)],
+            lambda: [x.abs() + (alpha * p).abs() + (gamma * s).abs()],
+            4 * n * 4 + 2 * 4, 4 * n, None, ("copy_ms", lambda: copy.copy_(x)),
+        ),
+        "residual_dots": (
+            lambda: cg_fused.residual_dots(x, p, s, gamma),
+            lambda: ref.residual_dots_ref(x, p, s, gamma),
+            lambda: [d(x) - d(gamma) * d(p), ((d(x) - d(gamma) * d(p)) * d(s)).sum(),
+                     ((d(x) - d(gamma) * d(p)) ** 2).sum()],
+            lambda: [x.abs() + (gamma * p).abs(),
+                     ((x - gamma * p) * s).abs().sum(),
+                     ((x - gamma * p) ** 2).sum()],
+            4 * n * 4 + 3 * 4, 6 * n, None, None,
+        ),
+    }
+    return {k: cases[k] for k in names}
+
+
+def _krylov_errors(torch, name, kern, plain, exact, terms):
+    """(max |kernel − plain|, its relative error, the relative error against
+    float64), relative to Σ|terms|; fails unless the kernel gives the same
+    bits on two more calls."""
+    got, want, ref64, scale = kern(), plain(), exact(), terms()
+    again = [kern(), kern()]
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, a) for r in again for g, a in zip(got, r)):
+        fail(f"{name}: two calls on the same inputs gave different bits")
+    abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    rel = lambda ws: max(float(((g.double() - w.double()).abs() / (t.double() + 1e-30)).max())
+                         for g, w, t in zip(got, ws, scale))
+    return abs_err, rel(want), rel(ref64)
+
+
+def phase_kernels(torch, cg_fused, ref, label="kernel"):
+    """Each Krylov kernel against its plain version and float64 at N_MAIN
+    and N_RAGGED, and at N_MAIN on the views of ``KRYLOV_OFFSETS``;
+    returns the records at N_MAIN, aligned, keyed by name."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB
     alpha = torch.tensor([0.37], device="cuda")
     gamma = torch.tensor([-1.3], device="cuda")
     records = {}
-    for n in (N_MAIN, N_RAGGED):
-        x, p, s = (torch.randn(n, device="cuda", generator=gen) for _ in range(3))
-        cases = {
-            # name: (kernel call, plain call, Σ|terms| per output, bytes, flops, library)
-            "dot2": (
-                lambda: cg_fused.dot2(x, p), lambda: ref.dot2_ref(x, p),
-                lambda: [(x * p).abs().sum(), (p * p).sum()],
-                2 * n * 4 + 2 * 4, 4 * n,
-                lambda: (torch.dot(x, p), torch.dot(p, p)),
-            ),
-            "x_update": (
-                lambda: [cg_fused.x_update(x, p, s, alpha, gamma)],
-                lambda: [ref.x_update_ref(x, p, s, alpha, gamma)],
-                lambda: [x.abs() + (alpha * p).abs() + (gamma * s).abs()],
-                4 * n * 4 + 2 * 4, 4 * n, None,
-            ),
-            "residual_dots": (
-                lambda: cg_fused.residual_dots(x, p, s, gamma),
-                lambda: ref.residual_dots_ref(x, p, s, gamma),
-                lambda: [x.abs() + (gamma * p).abs(),
-                         ((x - gamma * p) * s).abs().sum(),
-                         ((x - gamma * p) ** 2).sum()],
-                4 * n * 4 + 3 * 4, 6 * n, None,
-            ),
-        }
-        for name, (kern, plain, scale, nb, nf, library) in cases.items():
-            got, want, terms = kern(), plain(), scale()
-            torch.cuda.synchronize()
-            abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-            rel_err = max(float(((g - w).abs() / (t + 1e-30)).max())
-                          for g, w, t in zip(got, want, terms))
+    for n, offs in [(N_MAIN, (0, 0, 0)), (N_RAGGED, (0, 0, 0))] + [
+            (N_MAIN, o) for o in KRYLOV_OFFSETS[1:]]:
+        x, p, s = (torch.randn(n + 3, device="cuda", generator=gen)[o:o + n] for o in offs)
+        cases = _krylov_cases(torch, cg_fused, ref, x, p, s, alpha, gamma,
+                              ("dot2", "x_update", "residual_dots"))
+        for name, (kern, plain, exact, terms, nb, nf, library, yard) in cases.items():
+            abs_err, rel_err, rel_f64 = _krylov_errors(torch, name, kern, plain, exact, terms)
             b_ms, b_by = bound_ms(nb, nf)
             rec = {
-                "n": n, "rel_err": rel_err, "max_abs_err": abs_err,
+                "n": n, "offsets": list(offs), "rel_err": rel_err, "rel_err_f64": rel_f64,
+                "max_abs_err": abs_err,
                 "ms": time_cold(torch, kern, flush),
                 "ms_l2_warm": time_warm(torch, kern),
                 "plain_ms": time_cold(torch, plain, flush),
@@ -460,14 +513,58 @@ def phase_kernels(torch, cg_fused, ref):
                 "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None if library is None else time_cold(torch, library, flush),
             }
-            print(f"[kernel] {name}: {json.dumps(rec)}", flush=True)
-            if not rel_err <= TOL:
-                fail(f"{name} at n={n}: relative error {rel_err} > {TOL}")
-            if n == N_MAIN:
+            if yard:
+                rec[yard[0]] = time_cold(torch, yard[1], flush)
+                rec[yard[0] + "_l2_warm"] = time_warm(torch, yard[1])
+            print(f"[{label}] {name}: {json.dumps(rec)}", flush=True)
+            if not (rel_err <= TOL and rel_f64 <= TOL):
+                fail(f"{name} at n={n}, offsets {offs}: relative error {rel_err} "
+                     f"(float64: {rel_f64}) > {TOL}")
+            if n == N_MAIN and offs == (0, 0, 0):
                 records[name] = rec
     del flush
     torch.cuda.empty_cache()
     return records
+
+
+def phase_krylov_large(torch, cg_fused, ref, label="kernel"):
+    """``dot2`` and ``x_update`` at the transformer slice's flat length
+    (QWEN_PARAMS) against their plain versions and float64, under the gate of
+    ``phase_kernels``: ms with L2 cold (median and least of 9 calls),
+    the byte bound, the achieved GB/s, the plain version's ms, for ``dot2``
+    two ``torch.dot`` calls, and the yardstick of ``_krylov_cases``. Each
+    kernel is timed first, after 10 calls back to back: right after
+    ``torch.cuda.empty_cache()`` hands GB back to the driver, the same
+    kernel ran up to 18% slower for several calls on an H100. Frees its
+    vectors before it returns."""
+    n, reps = QWEN_PARAMS, 9
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    alpha = torch.tensor([0.37], device="cuda")
+    gamma = torch.tensor([-1.3], device="cuda")
+    x, p, s = (torch.randn(n, device="cuda", generator=gen) for _ in range(3))
+    cases = _krylov_cases(torch, cg_fused, ref, x, p, s, alpha, gamma, ("dot2", "x_update"))
+    for name, (kern, plain, exact, terms, nb, nf, library, yard) in cases.items():
+        for _ in range(10):
+            kern()
+        ts = [time_cold(torch, kern, flush, reps=1) for _ in range(reps)]
+        ms = statistics.median(ts)
+        b_ms, b_by = bound_ms(nb, nf)
+        rec = {
+            "n": n, "ms": ms, "ms_min": min(ts), "gb_per_s": nb / ms / 1e6,
+            "bound_ms": b_ms, "bound_by": b_by,
+            yard[0]: time_cold(torch, yard[1], flush, reps=reps),
+            "library_ms": None if library is None else time_cold(torch, library, flush,
+                                                                 reps=reps),
+            "plain_ms": time_cold(torch, plain, flush, reps=reps),
+        }
+        abs_err, rel_err, rel_f64 = _krylov_errors(torch, name, kern, plain, exact, terms)
+        rec.update(rel_err=rel_err, rel_err_f64=rel_f64, max_abs_err=abs_err)
+        print(f"[{label}] {name} large: {json.dumps(rec)}", flush=True)
+        if not (rel_err <= TOL and rel_f64 <= TOL):
+            fail(f"{name} at n={n}: relative error {rel_err} (float64: {rel_f64}) > {TOL}")
+    del x, p, s, cases, flush
+    torch.cuda.empty_cache()
 
 
 # Flash-attention cases: (tag, B, S, H, KV, hd, causal, window, valid_len, bias).
@@ -842,6 +939,7 @@ def phase_profile(torch, model, params, state, batch, hvp_batch):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.hf import HFConfig, hf_step
+    from repro_torch.kernels import ops
 
     def step(mode):
         cfg = HFConfig(solver="bicgstab", krylov_backend="flat", max_cg_iters=10,
@@ -854,8 +952,10 @@ def phase_profile(torch, model, params, state, batch, hvp_batch):
 
     step("linearize")  # warm
     plain_wall_ms, _ = step("linearize")
+    ops.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall_ms, iters = step("linearize")
+    launches = dict(ops.LAUNCHES)
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     print(f"[profile] bicgstab linearize step (cg_iters {iters}): device busy "
@@ -867,11 +967,20 @@ def phase_profile(torch, model, params, state, batch, hvp_batch):
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}", flush=True)
-    for name in ("dot2_partial", "x_update", "residual_dots_partial", "sum2_final"):
+    # Each wrapper call is one launch of its kernel (residual_dots: its
+    # partial pass, then sum2_final), so the profiler's counts must equal
+    # the wrappers' counts over the profiled step.
+    for name, wrapper in (("dot2_single", "dot2"), ("x_update", "x_update"),
+                          ("residual_dots_partial", "residual_dots"),
+                          ("sum2_final", "residual_dots")):
         own = [e for e in kern if name in e.key]
+        count = sum(e.count for e in own)
         print(f"[profile] port kernel {name}: "
               f"{sum(e.self_device_time_total for e in own) / 1e3:.3f} ms in "
-              f"{sum(e.count for e in own)} launches", flush=True)
+              f"{count} launches (LAUNCHES[{wrapper!r}] {launches[wrapper]})", flush=True)
+        if count != launches[wrapper]:
+            fail(f"{name}: {count} launches in the profiled step, but {launches[wrapper]} "
+                 f"calls of {wrapper}")
     walls = {}
     for mode in ("naive", "linearize", "chunked"):
         step(mode)  # warm
@@ -1078,6 +1187,7 @@ def phase_profile_sstep(torch, model, batch, hvp_batch):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.hf import HFConfig, hf_init, hf_step
+    from repro_torch.kernels import ops
 
     params = _timit_start(torch, model)
     results = {}
@@ -1100,8 +1210,10 @@ def phase_profile_sstep(torch, model, batch, hvp_batch):
         wall_ms, m = step()
         walls.append(wall_ms)
         reads = count_host_reads(torch, step)
+        ops.reset_launches()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             prof_ms, _ = step()
+        n_dot2 = ops.LAUNCHES["dot2"]
         kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in kern) / 1e3
         med = statistics.median(walls)
@@ -1119,11 +1231,14 @@ def phase_profile_sstep(torch, model, batch, hvp_batch):
         for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
             print(f"[profile-sstep] {tag}: {e.self_device_time_total / 1e3:9.3f} ms  "
                   f"x{e.count:<5d} {e.key[:90]}", flush=True)
-        for name in ("dots_block_partial", "gram_final", "dot2_partial"):
+        for name in ("dots_block_partial", "gram_final", "dot2_single"):
             own = [e for e in kern if name in e.key]
             print(f"[profile-sstep] {tag}: port kernel {name}: "
                   f"{sum(e.self_device_time_total for e in own) / 1e3:.3f} ms in "
                   f"{sum(e.count for e in own)} launches", flush=True)
+        count = sum(e.count for e in kern if "dot2_single" in e.key)
+        if count != n_dot2:
+            fail(f"{tag}: {count} dot2_single launches, but {n_dot2} calls of dot2")
     return results
 
 
@@ -2022,6 +2137,7 @@ def main() -> None:
     print(f"[card] {card}", flush=True)
 
     records = phase_kernels(torch, cg_fused, ref)
+    phase_krylov_large(torch, cg_fused, ref)
     records["dots_block"] = phase_gram(torch, cg_fused, ref)
     records.update(phase_flash(torch))
     model, params, state, batch, hvp_batch, launches = phase_slice(torch, ops)

@@ -1,7 +1,7 @@
 // Fused Krylov vector recurrences for Hopper (sm_90a), plain C interface.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/cg_fused.py:
-//   dot2_partial + sum2_final   <- _dot2_kernel / dot2            (<u,v>, <v,v>)
+//   dot2_single                 <- _dot2_kernel / dot2            (<u,v>, <v,v>)
 //   x_update                    <- _x_update_kernel / x_update    x + a*p + g*s
 //   residual_dots_partial + sum2_final
 //                               <- _residual_dots_kernel / residual_dots
@@ -14,11 +14,46 @@
 // (a few flops per 4-byte element, far below the H100's ~20 flop/byte
 // balance for f32), so the only lever is to read each input once and write
 // each output once: the axpy chain and the dots it feeds are fused into one
-// pass. The TPU kernel zero-padded n up to its 64k block and carried one
-// partial per block; here a grid-stride loop masks the ragged tail, and each
-// thread block writes its partial sum to its own slot. sum2_final then adds
-// the slots in a fixed order in one block. No float atomics: the result is
-// the same from run to run, which the flat Krylov backend's parity needs.
+// pass. No float atomics anywhere: every result is the same from run to run,
+// which the flat Krylov backend's parity needs; the order of summation
+// depends on n, the inputs' alignment and the SM count, never on timing.
+//
+// dot2 and x_update are what is left of a Krylov iteration once its products
+// are taken: a few MB at the MLP's n = 1,722,293, where the launch, the
+// tail and a cold L2 cost as much as the bytes, and GB at a transformer's n,
+// where only the bytes in flight count. Both launch at most one resident wave (the SM count
+// times the blocks of 256 threads that fit an SM, read once per device;
+// fewer blocks at small n, see stream_blocks) and walk the vectors as
+// "vectors" of four consecutive floats: thread t of the G in the grid takes
+// vectors t, t + G, t + 2G, ..., kDotUnroll (dot2) or kAxpyUnroll
+// (x_update) of them per operand loaded before any is used.
+// Where every operand has the same address mod 16 bytes, a vector is one
+// 16-byte load (__ldg); the first h < 4 elements (the head, up to the first
+// 16-byte boundary) and the last (n - h) mod 4 (the tail) are taken one
+// element each by threads 0, 1, 2 of the grid. Where the offsets differ (a
+// row of an (s, n) block with odd n against a fresh vector), the same kernel
+// runs with four 4-byte loads a vector and no head. x_update lays its fresh
+// output at x's offset mod 16 (the binding allocates n + 3 floats and
+// returns a view), so one shared offset of x, p and s is enough. The TPU
+// kernels zero-padded n up to their 64k block and carried one partial per
+// grid step; here the ragged head and tail are masked.
+//
+// dot2 is one launch. Each thread keeps one f32 fma chain per lane of its
+// vectors (four for <u,v>, four for <v,v>), ends with the head and tail
+// elements in lane 0, and adds its lanes as (l0 + l1) + (l2 + l3); the block
+// adds its threads by the warp shuffle tree of block_sum2 and writes its two
+// partials to a scratch slot. Then thread 0 fences and takes a ticket from a
+// counter (atomicAdd); the block that draws the last ticket reads every
+// slot back from L2, adds them in a fixed order (thread i the slots i,
+// i + 256, ..., then block_sum2), writes out[0..1] and sets the counter back
+// to 0. A last-block counter and not a cooperative launch with a grid sync:
+// every other block exits as soon as its partials are out, and the launch
+// is an ordinary one. The binding owns the scratch and the counter, one
+// buffer per device and stream, zeroed once, so two dot2s in flight on two
+// streams never share a counter and no memset is launched per call.
+//
+// residual_dots still writes one partial per block and sum2_final adds the
+// slots in a fixed order in one block (two launches).
 //
 // dots_block is bound by bytes too: at the s-step shapes (s_u <= 17 rows
 // against s_v <= 20, n = 1.7M) it does s_u*s_v / (s_u + s_v) ~ 9 FMAs per
@@ -58,7 +93,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxReduceBlocks = 1024;
-constexpr int kMaxElementwiseBlocks = 132 * 16;
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
@@ -82,24 +116,6 @@ __device__ __forceinline__ void block_sum2(float v[2]) {
     v[1] = lane < kWarps ? sh[1][lane] : 0.f;
     v[0] = warp_sum(v[0]);
     v[1] = warp_sum(v[1]);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-dot2_partial(const float* __restrict__ u, const float* __restrict__ v, int64_t n,
-             float* __restrict__ part) {
-  float acc[2] = {0.f, 0.f};
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n; i += stride) {
-    const float a = u[i];
-    const float b = v[i];
-    acc[0] += a * b;
-    acc[1] += b * b;
-  }
-  block_sum2(acc);
-  if (threadIdx.x == 0) {
-    part[blockIdx.x] = acc[0];
-    part[gridDim.x + blockIdx.x] = acc[1];
   }
 }
 
@@ -138,16 +154,199 @@ sum2_final(const float* __restrict__ part, int nb, float* __restrict__ out) {
   }
 }
 
+// -------------------------------------------------------- dot2, x_update --
+constexpr int kDotUnroll = 4;      // vectors of each operand in flight, dot2
+constexpr int kAxpyUnroll = 2;     // the same, x_update (three operands)
+constexpr int kMaxStreamBlocks = 4096;  // scratch slots of dot2 (132 SMs x 8 need 1056)
+
+// Elements 4j..4j+3 from p: one 16-byte load where kVec (p 16-byte aligned),
+// else four 4-byte loads.
+template <bool kVec>
+__device__ __forceinline__ float4 load4(const float* __restrict__ p, int64_t j) {
+  if (kVec) return __ldg(reinterpret_cast<const float4*>(p) + j);
+  const float* q = p + 4 * j;
+  return make_float4(__ldg(q), __ldg(q + 1), __ldg(q + 2), __ldg(q + 3));
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store4(float* __restrict__ p, int64_t j, float4 w) {
+  if (kVec) {
+    reinterpret_cast<float4*>(p)[j] = w;
+  } else {
+    float* q = p + 4 * j;
+    q[0] = w.x;
+    q[1] = w.y;
+    q[2] = w.z;
+    q[3] = w.w;
+  }
+}
+
+// (<u,v>, <v,v>) into out[0..1] in one launch (header). The body is the
+// m = (n - h) / 4 vectors from element h; part holds 2 * gridDim.x slots and
+// *count is 0 on entry and on exit.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+dot2_single(const float* __restrict__ u, const float* __restrict__ v, int64_t n, int h,
+            float* __restrict__ part, unsigned int* __restrict__ count,
+            float* __restrict__ out) {
+  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t G = (int64_t)gridDim.x * kThreads;
+  const int64_t m = (n - h) >> 2;
+  const float* __restrict__ ub = u + h;
+  const float* __restrict__ vb = v + h;
+  float uv[4] = {0.f, 0.f, 0.f, 0.f}, vv[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int64_t j0 = t; j0 < m; j0 += G * kDotUnroll) {
+    float4 a[kDotUnroll], b[kDotUnroll];
+#pragma unroll
+    for (int k = 0; k < kDotUnroll; ++k) {
+      const int64_t j = j0 + k * G;
+      a[k] = j < m ? load4<kVec>(ub, j) : make_float4(0.f, 0.f, 0.f, 0.f);
+      b[k] = j < m ? load4<kVec>(vb, j) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < kDotUnroll; ++k) {
+      uv[0] = fmaf(a[k].x, b[k].x, uv[0]);
+      uv[1] = fmaf(a[k].y, b[k].y, uv[1]);
+      uv[2] = fmaf(a[k].z, b[k].z, uv[2]);
+      uv[3] = fmaf(a[k].w, b[k].w, uv[3]);
+      vv[0] = fmaf(b[k].x, b[k].x, vv[0]);
+      vv[1] = fmaf(b[k].y, b[k].y, vv[1]);
+      vv[2] = fmaf(b[k].z, b[k].z, vv[2]);
+      vv[3] = fmaf(b[k].w, b[k].w, vv[3]);
+    }
+  }
+  if (t < h) {  // head element t
+    const float a = __ldg(u + t), b = __ldg(v + t);
+    uv[0] = fmaf(a, b, uv[0]);
+    vv[0] = fmaf(b, b, vv[0]);
+  }
+  if (t < ((n - h) & 3)) {  // tail element t
+    const int64_t i = h + 4 * m + t;
+    const float a = __ldg(u + i), b = __ldg(v + i);
+    uv[0] = fmaf(a, b, uv[0]);
+    vv[0] = fmaf(b, b, vv[0]);
+  }
+  float acc[2] = {(uv[0] + uv[1]) + (uv[2] + uv[3]), (vv[0] + vv[1]) + (vv[2] + vv[3])};
+  block_sum2(acc);
+
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    part[blockIdx.x] = acc[0];
+    part[gridDim.x + blockIdx.x] = acc[1];
+    __threadfence();  // the slots are visible before the ticket is drawn
+    last = atomicAdd(count, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float sum[2] = {0.f, 0.f};
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += kThreads) {
+    sum[0] += __ldcg(part + b);  // from L2: other SMs wrote the slots
+    sum[1] += __ldcg(part + gridDim.x + b);
+  }
+  block_sum2(sum);
+  if (threadIdx.x == 0) {
+    out[0] = sum[0];
+    out[1] = sum[1];
+    *count = 0u;
+  }
+}
+
+// out = x + alpha*p + gamma*s, elementwise (header); out shares x's offset
+// mod 16 bytes, so the head h is the same for all four.
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 x_update(const float* __restrict__ x, const float* __restrict__ p,
          const float* __restrict__ s, const float* __restrict__ alpha,
-         const float* __restrict__ gamma, int64_t n, float* __restrict__ out) {
+         const float* __restrict__ gamma, int64_t n, int h, float* __restrict__ out) {
   const float a = *alpha;
   const float g = *gamma;
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n; i += stride) {
+  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t G = (int64_t)gridDim.x * kThreads;
+  const int64_t m = (n - h) >> 2;
+  for (int64_t j0 = t; j0 < m; j0 += G * kAxpyUnroll) {
+    float4 xv[kAxpyUnroll], pv[kAxpyUnroll], sv[kAxpyUnroll];
+#pragma unroll
+    for (int k = 0; k < kAxpyUnroll; ++k) {
+      const int64_t j = j0 + k * G;
+      if (j < m) {
+        xv[k] = load4<kVec>(x + h, j);
+        pv[k] = load4<kVec>(p + h, j);
+        sv[k] = load4<kVec>(s + h, j);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kAxpyUnroll; ++k) {
+      const int64_t j = j0 + k * G;
+      if (j < m) {
+        float4 o;
+        o.x = xv[k].x + a * pv[k].x + g * sv[k].x;
+        o.y = xv[k].y + a * pv[k].y + g * sv[k].y;
+        o.z = xv[k].z + a * pv[k].z + g * sv[k].z;
+        o.w = xv[k].w + a * pv[k].w + g * sv[k].w;
+        store4<kVec>(out + h, j, o);
+      }
+    }
+  }
+  if (t < h) out[t] = x[t] + a * p[t] + g * s[t];
+  if (t < ((n - h) & 3)) {
+    const int64_t i = h + 4 * m + t;
     out[i] = x[i] + a * p[i] + g * s[i];
   }
+}
+
+// The SM count and one resident wave of a kernel (blocks of kThreads), read
+// once per device and instance; kinds: 0, 1 dot2 (4-byte, 16-byte body),
+// 2, 3 x_update.
+struct Wave {
+  int sms, resident;
+};
+
+Wave wave(int kind) {
+  constexpr int kMaxDevices = 64;
+  static Wave cache[kMaxDevices][4] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  Wave& w = cache[dev < kMaxDevices ? dev : 0][kind];
+  if (w.resident == 0) {
+    const void* k = kind == 0 ? (const void*)dot2_single<false>
+                  : kind == 1 ? (const void*)dot2_single<true>
+                  : kind == 2 ? (const void*)x_update<false>
+                              : (const void*)x_update<true>;
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, kThreads, 0);
+    sms = sms < 1 ? 1 : sms;
+    const int r = sms * (per_sm < 1 ? 1 : per_sm);
+    w.sms = sms;
+    w.resident = r < kMaxStreamBlocks ? r : kMaxStreamBlocks;
+  }
+  return w;
+}
+
+// Blocks for m vectors at ``unroll`` a thread an iteration: as many as give
+// each thread ``unroll`` vectors, but at least one an SM while every thread
+// still has a vector, and at most one resident wave. Fewer, fuller blocks
+// mean fewer partials and tickets at the MLP's n; the wave keeps every SM
+// streaming at a transformer's.
+int stream_blocks(int kind, int64_t m, int unroll) {
+  const Wave w = wave(kind);
+  const int64_t per_thread = (m + (int64_t)kThreads * unroll - 1) / ((int64_t)kThreads * unroll);
+  const int64_t busy = (m + kThreads - 1) / kThreads;
+  int64_t b = per_thread > w.sms ? per_thread : (busy < w.sms ? busy : w.sms);
+  b = b > w.resident ? w.resident : b;
+  return (int)(b < 1 ? 1 : b);
+}
+
+// The head of a pass over vectors at byte addresses a, b and c: the elements
+// before a's first 16-byte boundary where b and c have a's offset mod 16,
+// else -1 (the 4-byte body).
+int head_of(const void* a, const void* b, const void* c, int64_t n) {
+  const uintptr_t o = reinterpret_cast<uintptr_t>(a) & 15;
+  if ((reinterpret_cast<uintptr_t>(b) & 15) != o || (reinterpret_cast<uintptr_t>(c) & 15) != o)
+    return -1;
+  const int64_t h = (int64_t)((16 - o) & 15) / 4;
+  return (int)(h < n ? h : n);
 }
 
 // ---------------------------------------------------------------- Gram --
@@ -339,9 +538,22 @@ extern "C" {
 // Number of partial-sum slots (thread blocks) the reductions use for n elements.
 int cg_reduce_blocks(int64_t n) { return blocks_for(n, kMaxReduceBlocks); }
 
-void cg_dot2_partial(const float* u, const float* v, int64_t n, float* part, int nb,
-                     cudaStream_t stream) {
-  dot2_partial<<<nb, kThreads, 0, stream>>>(u, v, n, part);
+// Floats of dot2's scratch: 2 slots a block, then the counter.
+int cg_dot2_scratch_floats() { return 2 * kMaxStreamBlocks + 1; }
+
+// scratch: cg_dot2_scratch_floats() floats whose last is a zeroed counter,
+// owned by the caller for this stream alone.
+void cg_dot2(const float* u, const float* v, int64_t n, float* scratch, float* out,
+             cudaStream_t stream) {
+  const int h = head_of(u, v, v, n);
+  unsigned int* count = reinterpret_cast<unsigned int*>(scratch + 2 * kMaxStreamBlocks);
+  if (h >= 0) {
+    const int nb = stream_blocks(1, (n - h) >> 2, kDotUnroll);
+    dot2_single<true><<<nb, kThreads, 0, stream>>>(u, v, n, h, scratch, count, out);
+  } else {
+    const int nb = stream_blocks(0, n >> 2, kDotUnroll);
+    dot2_single<false><<<nb, kThreads, 0, stream>>>(u, v, n, 0, scratch, count, out);
+  }
 }
 
 void cg_residual_dots_partial(const float* s, const float* As, const float* r0s,
@@ -354,10 +566,17 @@ void cg_sum2_final(const float* part, int nb, float* out, cudaStream_t stream) {
   sum2_final<<<1, kThreads, 0, stream>>>(part, nb, out);
 }
 
+// out must have x's address mod 16 bytes.
 void cg_x_update(const float* x, const float* p, const float* s, const float* alpha,
                  const float* gamma, int64_t n, float* out, cudaStream_t stream) {
-  x_update<<<blocks_for(n, kMaxElementwiseBlocks), kThreads, 0, stream>>>(
-      x, p, s, alpha, gamma, n, out);
+  const int h = head_of(x, p, s, n);
+  if (h >= 0) {
+    x_update<true><<<stream_blocks(3, (n - h) >> 2, kAxpyUnroll), kThreads, 0, stream>>>(
+        x, p, s, alpha, gamma, n, h, out);
+  } else {
+    x_update<false><<<stream_blocks(2, n >> 2, kAxpyUnroll), kThreads, 0, stream>>>(
+        x, p, s, alpha, gamma, n, 0, out);
+  }
 }
 
 // Most rows of U and of V that cg_dots_block_partial takes.

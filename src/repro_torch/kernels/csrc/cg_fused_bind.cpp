@@ -17,14 +17,19 @@
 #include <c10/cuda/CUDAStream.h>
 #include <cuda_runtime.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 #include "flash_attention.h"
 #include "flash_decode.h"
 #include "ssd_scan.h"
 
 extern "C" {
 int cg_reduce_blocks(int64_t n);
-void cg_dot2_partial(const float* u, const float* v, int64_t n, float* part, int nb,
-                     cudaStream_t stream);
+int cg_dot2_scratch_floats();
+void cg_dot2(const float* u, const float* v, int64_t n, float* scratch, float* out,
+             cudaStream_t stream);
 void cg_residual_dots_partial(const float* s, const float* As, const float* r0s,
                               const float* gamma, int64_t n, float* r, float* part,
                               int nb, cudaStream_t stream);
@@ -61,6 +66,21 @@ void check_len(const at::Tensor& t) {
   TORCH_CHECK(t.dim() == 1 && t.size(0) > 0, "vectors must be 1-D and non-empty");
 }
 
+// dot2's scratch slots and counter for one device and stream, zeroed at
+// first use and kept for the process: every dot2 leaves its counter at 0,
+// and launches on one stream never overlap. Never freed (the map outlives
+// the CUDA context's teardown at exit).
+float* dot2_scratch(const at::Tensor& like, cudaStream_t stream) {
+  static std::mutex mu;
+  static auto* bufs = new std::map<std::pair<int, cudaStream_t>, at::Tensor>();
+  std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_pair((int)like.get_device(), stream);
+  auto it = bufs->find(key);
+  if (it == bufs->end())
+    it = bufs->emplace(key, at::zeros({cg_dot2_scratch_floats()}, like.options())).first;
+  return it->second.data_ptr<float>();
+}
+
 at::Tensor sum2(const at::Tensor& part, int nb, cudaStream_t stream) {
   auto out = at::empty({2}, part.options());
   cg_sum2_final(part.data_ptr<float>(), nb, out.data_ptr<float>(), stream);
@@ -70,20 +90,18 @@ at::Tensor sum2(const at::Tensor& part, int nb, cudaStream_t stream) {
 
 }  // namespace
 
-// (<u,v>, <v,v>) as a (2,) tensor.
+// (<u,v>, <v,v>) as a (2,) tensor, in one launch.
 at::Tensor dot2(const at::Tensor& u, const at::Tensor& v) {
   check_len(u);
   check_vec(u, "u", u);
   check_vec(v, "v", u);
   c10::cuda::CUDAGuard guard(u.device());
   cudaStream_t stream = c10::cuda::getCurrentCUDAStream().stream();
-  const int64_t n = u.size(0);
-  const int nb = cg_reduce_blocks(n);
-  auto part = at::empty({2 * nb}, u.options());
-  cg_dot2_partial(u.data_ptr<float>(), v.data_ptr<float>(), n, part.data_ptr<float>(),
-                  nb, stream);
+  auto out = at::empty({2}, u.options());
+  cg_dot2(u.data_ptr<float>(), v.data_ptr<float>(), u.size(0), dot2_scratch(u, stream),
+          out.data_ptr<float>(), stream);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
-  return sum2(part, nb, stream);
+  return out;
 }
 
 // x + alpha*p + gamma*s.
@@ -97,10 +115,14 @@ at::Tensor x_update(const at::Tensor& x, const at::Tensor& p, const at::Tensor& 
   check_scalar(gamma, "gamma", x);
   c10::cuda::CUDAGuard guard(x.device());
   cudaStream_t stream = c10::cuda::getCurrentCUDAStream().stream();
-  auto out = at::empty_like(x);
+  // out at x's offset mod 16 bytes (a view into n + 3 floats), so that the
+  // kernel's 16-byte body covers out wherever x, p and s share an offset.
+  const int64_t n = x.size(0);
+  const int64_t off = (int64_t)((reinterpret_cast<uintptr_t>(x.data_ptr<float>()) & 15) / 4);
+  auto out = at::empty({n + 3}, x.options()).narrow(0, off, n);
   cg_x_update(x.data_ptr<float>(), p.data_ptr<float>(), s.data_ptr<float>(),
-              alpha.data_ptr<float>(), gamma.data_ptr<float>(), x.size(0),
-              out.data_ptr<float>(), stream);
+              alpha.data_ptr<float>(), gamma.data_ptr<float>(), n, out.data_ptr<float>(),
+              stream);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
 }

@@ -125,7 +125,8 @@ def test_port_never_calls_the_library_attention():
 def test_port_imports_neither_jax_nor_the_reference():
     code = (
         "import sys\n"
-        "import repro_torch.core.hf, repro_torch.models.mlp, repro_torch.interop\n"
+        "import repro_torch.core.hf, repro_torch.core.hvp, repro_torch.models.mlp\n"
+        "import repro_torch.interop\n"
         "import repro_torch.kernels.ops, repro_torch.data.synthetic\n"
         "import repro_torch.kernels.flash_ad, repro_torch.models.transformer\n"
         "import repro_torch.launch.train, repro_torch.optim, repro_torch.configs\n"

@@ -4,6 +4,8 @@ kernels (``repro.kernels.ref`` and the Pallas kernels in interpret mode).
 The CUDA kernels themselves run only on the card; ``chip_smoke.py`` holds
 them against these plain versions there.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -140,6 +142,103 @@ def _gram_ring(U, V, nb, tile=128, lanes=32):
     for b in range(nb):
         out = out + acc[:, :, b, 0]
     return out
+
+
+def _stream_blocks(m, unroll=4, sms=132, resident=132 * 6, threads=256):
+    """The grid of ``csrc/cg_fused.cu``'s ``stream_blocks`` for m vectors (on
+    an H100: 132 SMs, 6 blocks of 256 threads an SM at 40 registers)."""
+    per_thread = -(-m // (threads * unroll))
+    busy = -(-m // threads)
+    b = per_thread if per_thread > sms else min(busy, sms)
+    return max(1, min(b, resident))
+
+
+def _block_tree(v, threads=256):
+    """``block_sum2`` on a (..., threads) f32 tensor: the shuffle tree
+    (16, 8, 4, 2, 1) in each warp, then the same tree over the warps' sums
+    padded to 32 lanes with zeros; the block's sum as (...,)."""
+    def warp_tree(w):
+        for off in (16, 8, 4, 2, 1):
+            w = torch.cat([w[..., :off] + w[..., off:2 * off], w[..., 2 * off:]], -1)
+        return w[..., 0]
+
+    warps = warp_tree(v.reshape(*v.shape[:-1], threads // 32, 32))
+    pad = torch.zeros(*warps.shape[:-1], 32 - warps.shape[-1], dtype=torch.float32)
+    return warp_tree(torch.cat([warps, pad], -1))
+
+
+def _dot2_single(u, v, nb, off_u=0, off_v=0, threads=256, unroll=4):
+    """(<u,v>, <v,v>) summed in the order of the kernel (``csrc/cg_fused.cu``
+    ``dot2_single``) with nb blocks, for u and v at element offsets off_u and
+    off_v from 16-byte boundaries. Where the offsets agree, the head of h
+    elements up to the first boundary is peeled and the body read as 16-byte
+    vectors, else the body starts at element 0 (four 4-byte loads a vector,
+    the same order). Thread t of the G = nb * threads takes vectors t, t + G,
+    ... (``unroll`` a step) into one f32 fma chain per lane, then head
+    element t and tail element t into lane 0, and adds (l0 + l1) + (l2 + l3);
+    each block adds its threads by ``_block_tree``; the last block's thread i
+    adds slots i, i + threads, ... in order, then ``_block_tree``."""
+    n = u.shape[0]
+    h = min((4 - off_u % 4) % 4, n) if off_u % 4 == off_v % 4 else 0
+    m, r = (n - h) // 4, (n - h) % 4
+    G = nb * threads
+    sums = []
+    for a, b in ((u, v), (v, v)):
+        acc = torch.zeros(G, 4, dtype=torch.float32)
+        steps = -(-m // (G * unroll))
+        if steps:
+            pad = steps * G * unroll * 4 - 4 * m
+            body = [torch.nn.functional.pad(t[h:h + 4 * m], (0, pad)).double()
+                    .reshape(steps, unroll, G, 4) for t in (a, b)]
+            for i in range(steps):
+                for k in range(unroll):
+                    acc = (acc.double() + body[0][i, k] * body[1][i, k]).float()
+        for idx in [list(range(h)), [h + 4 * m + t for t in range(r)]]:
+            if idx:
+                t = torch.tensor(idx)
+                lane = acc[:len(idx), 0].double() + a[t].double() * b[t].double()
+                acc[:len(idx), 0] = lane.float()
+        per_thread = (acc[:, 0] + acc[:, 1]) + (acc[:, 2] + acc[:, 3])
+        part = _block_tree(per_thread.reshape(nb, threads), threads)
+        slots = torch.zeros(threads, dtype=torch.float32)
+        for i in range(0, nb, threads):
+            chunk = part[i:i + threads]
+            slots[:chunk.shape[0]] = slots[:chunk.shape[0]] + chunk
+        sums.append(_block_tree(slots, threads))
+    return sums
+
+
+@functools.lru_cache(maxsize=None)
+def _dot2_case(n):
+    """Seeded f32 vectors of length n and the reference's Pallas ``dot2`` on
+    them in interpret mode."""
+    rng = np.random.default_rng(n + 11)
+    u = rng.standard_normal(n).astype(np.float32)
+    v = rng.standard_normal(n).astype(np.float32)
+    want = [float(w) for w in jops.dot2(jnp.asarray(u), jnp.asarray(v), interpret=True)]
+    return u, v, want
+
+
+@pytest.mark.parametrize("grid", ["h100", "132x8"])
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 1), (1, 2)], ids=["aligned", "both-1", "1-2"])
+@pytest.mark.parametrize("n", [1, 5, 65_537, 1_722_293])
+def test_dot2_single_order_matches_float64_and_pallas_interpret(n, offsets, grid):
+    """The order of summation of the one-launch ``dot2`` kernel, emulated in
+    torch at the grid ``stream_blocks`` picks on an H100 and at 132 x 8
+    blocks, against float64 (1e-6 of Σ|terms|) and against
+    ``repro.kernels.ops.dot2`` in interpret mode (1e-5 of Σ|terms|). At
+    offsets (1, 1) the head of 3 elements is peeled; at (1, 2) the body
+    starts at element 0."""
+    u, v, want = _dot2_case(n)
+    off_u, off_v = offsets
+    h = min((4 - off_u % 4) % 4, n) if off_u % 4 == off_v % 4 else 0
+    nb = _stream_blocks((n - h) // 4) if grid == "h100" else 132 * 8
+    got = _dot2_single(torch.from_numpy(u), torch.from_numpy(v), nb, off_u, off_v)
+    for g, w, terms in zip(got, want, (u.astype(np.float64) * v, v.astype(np.float64) * v)):
+        scale = float(np.sum(np.abs(terms)))
+        assert g.dtype == torch.float32
+        assert abs(float(g) - float(np.sum(terms))) <= 1e-6 * scale
+        assert abs(float(g) - w) <= 1e-5 * scale
 
 
 def _tf32(x):
