@@ -13,8 +13,9 @@ only) and on the head-dim cases (hd 112 and 96). ``--ssd`` runs the tree's
 ``phase_ssd`` takes a list of cases) and ``--gram`` its ``phase_gram`` (the
 s-step Gram shapes); ``--krylov`` runs its ``phase_kernels`` (``dot2``,
 ``x_update`` and ``residual_dots``), then this script's
-``phase_krylov_large`` on the tree's kernels (``dot2`` and ``x_update`` at
-464,118,784 elements). These flags combine.
+``phase_krylov_large`` on the tree's kernels (``dot2``, ``x_update`` and
+``residual_dots`` with r0s read and with r0s = s, at 464,118,784
+elements). These flags combine.
 ``--ptxas`` also prints the tree's ``nvcc -Xptxas -v`` report. Each
 record's label names the tree, so that one command can compare two trees on
 one card in turns, e.g. a parent unpacked with ``git archive`` into

@@ -8,12 +8,12 @@ Phases, each printed on lines of its own; any failure exits non-zero:
 1. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
              (``cg_fused.cu``, ``flash_attention.cu``, ``flash_decode.cu`` and
              ``ssd_scan.cu``, one extension); beside it, ``nvcc -Xptxas -v``
-             on ``flash_attention.cu`` and on ``flash_decode.cu`` prints the
-             registers, spills and shared memory of each instance of the
-             four tensor-core flash kernels (forward, dQ, dK/dV, JVP) and of
-             the two one-launch decode kernels (dense, paged; a spill in dQ
-             or the JVP fails); print the build time and the card's name and
-             power limit.
+             on each source prints the registers, spills and shared memory
+             of each instance of the four tensor-core flash kernels
+             (forward, dQ, dK/dV, JVP), the two one-launch decode kernels,
+             ``ssd_intra_kernel``, ``dots_block_partial`` and the three
+             one-wave Krylov kernels (a spill in one of ``NO_SPILL`` fails);
+             print the build time and the card's name and power limit.
 2. kernels — each Krylov kernel against its plain PyTorch version and
              float64 on the card at n = 1,722,293 (the TIMIT MLP's parameter
              count) and n = 65,537, and at 1,722,293 on views at element
@@ -21,10 +21,13 @@ Phases, each printed on lines of its own; any failure exits non-zero:
              error (≤ 1e-5), the same bits on repeated calls, time with L2
              cold and warm, the plain version's time, a library yardstick
              where one exists, and the bound (bytes over 3.35 TB/s or f32
-             operations over 67 TFLOP/s). ``dot2`` and ``x_update`` also at
-             n = 464,118,784 (the transformer slice's flat vectors) under the
-             same gates: ms with L2 cold, achieved GB/s, and two
-             ``torch.dot`` calls beside ``dot2``.
+             operations over 67 TFLOP/s). ``residual_dots`` also in the CG
+             solver's form, r0s = s (three streams), which must give the
+             bits of r0s = a copy of s. ``dot2``, ``x_update`` and both
+             forms of ``residual_dots`` also at n = 464,118,784 (the
+             transformer slice's flat vectors) under the same gates: ms
+             with L2 cold, achieved GB/s, two ``torch.dot`` calls beside
+             ``dot2`` and a copy of x beside the others.
    The Gram kernel ``dots_block`` is held against its plain version at the
    s-step path's shapes: (17, 20), (17, 17), (9, 12) and (9, 9) rows at
    n = 1,722,293 and (9, 17) at n = 65,537, relative error ≤ 1e-5 of max|G|,
@@ -206,14 +209,16 @@ def card_line() -> str:
 PTXAS_SOURCES = ("flash_attention.cu", "flash_decode.cu", "ssd_scan.cu", "cg_fused.cu")
 PTXAS_KERNELS = ("fa_forward_mma", "fa_dq_mma", "fa_dkv_mma", "fa_jvp_mma", "fd_dense_kernel",
                  "fd_paged_kernel", "ssd_intra_kernel", "dots_block_partial", "dot2_single",
-                 "x_update")
+                 "x_update", "residual_dots_single")
 # A spill in an instance of these fails the run.
 NO_SPILL = ("fa_dq_mma", "fa_jvp_mma", "ssd_intra_kernel", "dots_block_partial", "dot2_single",
-            "x_update")
-# The labels of the instances of the kernels templated on one bool.
-BOOL_INSTANCES = {"ssd_intra_kernel": ("f32 B, C", "bf16 B, C"),
-                  "dot2_single": ("4-byte body", "16-byte body"),
-                  "x_update": ("4-byte body", "16-byte body")}
+            "x_update", "residual_dots_single")
+# The labels of the instances of the kernels templated on bools, one pair a bool.
+BOOL_INSTANCES = {"ssd_intra_kernel": (("f32 B, C", "bf16 B, C"),),
+                  "dot2_single": (("4-byte body", "16-byte body"),),
+                  "x_update": (("4-byte body", "16-byte body"),),
+                  "residual_dots_single": (("4-byte body", "16-byte body"),
+                                           ("r0s read", "r0s is s"))}
 
 
 def start_ptxas():
@@ -245,7 +250,7 @@ def _smem_bytes(kernel, args):
     (whose shared memory follows the launch's shape) at the slices' shapes,
     (Q, N, P) = (128, 64, 64), and the s-step Gram each instance is cut for
     (4 stages of 128 columns of the padded rows)."""
-    if kernel in ("dot2_single", "x_update"):
+    if kernel in ("dot2_single", "x_update", "residual_dots_single"):
         return 0
     if kernel == "ssd_intra_kernel":
         from repro_torch.kernels import ssd_scan
@@ -279,16 +284,19 @@ def _ptxas_instance(func):
         tmpl = ("bf16" if args[0] == 2 else "f32") if k.group(2) else None
         shown = ", ".join([tmpl] * bool(tmpl) + [str(a) for a in args[bool(tmpl):]])
         return k.group(1), shown, args
-    k = re.search(r"\d(" + "|".join(BOOL_INSTANCES) + r")ILb([01])E", func or "")
+    k = re.search(r"\d(" + "|".join(BOOL_INSTANCES) + r")I((?:Lb[01]E)+)E", func or "")
     if k:
-        return k.group(1), BOOL_INSTANCES[k.group(1)][int(k.group(2))], []
+        bits = [int(b) for b in re.findall(r"Lb([01])E", k.group(2))]
+        return k.group(1), ", ".join(
+            labels[b] for labels, b in zip(BOOL_INSTANCES[k.group(1)], bits)), []
     return None
 
 
 def print_ptxas(procs):
     """Registers, spills and shared memory of each instance of the four
     tensor-core flash kernels, the two decode kernels, ``ssd_intra_kernel``,
-    ``dots_block_partial``, ``dot2_single`` and ``x_update``; fails if one is
+    ``dots_block_partial``, ``dot2_single``, ``x_update`` and
+    ``residual_dots_single``; fails if one is
     missing, or if an instance of a ``NO_SPILL`` kernel spills."""
     seen = set()
     for name, proc in procs:
@@ -433,15 +441,33 @@ def phase_gram(torch, cg_fused, ref, label="kernel"):
 KRYLOV_OFFSETS = ((0, 0, 0), (1, 1, 1), (1, 2, 0))
 
 
+# The Krylov kernels whose records the kernels line takes, and the name of
+# ``residual_dots``' form with r0s = s (the CG call; three streams).
+KRYLOV_NAMES = ("dot2", "x_update", "residual_dots")
+RESIDUAL_ALIASED = "residual_dots r0s=s"
+
+
 def _krylov_cases(torch, cg_fused, ref, x, p, s, alpha, gamma, names):
     """name: (kernel call, plain call, float64 call, Σ|terms| per output,
     bytes, flops, library call or None, yardstick) for the Krylov kernels in
     ``names``. The yardstick is a (key, call) of one PyTorch pass over half
     the kernel's bytes, timed under the same harness: ``p.sum()`` beside
-    ``dot2``, a copy of x beside ``x_update``."""
+    ``dot2``, a copy of x beside ``x_update`` and both forms of
+    ``residual_dots`` (which computes r = x − γ·p with r0s = s, or r0s = x
+    itself under ``RESIDUAL_ALIASED``)."""
     n = x.shape[0]
     d = lambda t: t.double()
-    copy = torch.empty_like(x) if "x_update" in names else None
+    copy = torch.empty_like(x) if set(names) - {"dot2"} else None
+    res = lambda w: (
+        lambda: cg_fused.residual_dots(x, p, w, gamma),
+        lambda: ref.residual_dots_ref(x, p, w, gamma),
+        lambda: [d(x) - d(gamma) * d(p), ((d(x) - d(gamma) * d(p)) * d(w)).sum(),
+                 ((d(x) - d(gamma) * d(p)) ** 2).sum()],
+        lambda: [x.abs() + (gamma * p).abs(),
+                 ((x - gamma * p) * w).abs().sum(),
+                 ((x - gamma * p) ** 2).sum()],
+        (4 if w is s else 3) * n * 4 + 3 * 4, 6 * n, None, ("copy_ms", lambda: copy.copy_(x)),
+    )
     cases = {
         "dot2": (
             lambda: cg_fused.dot2(x, p), lambda: ref.dot2_ref(x, p),
@@ -457,16 +483,8 @@ def _krylov_cases(torch, cg_fused, ref, x, p, s, alpha, gamma, names):
             lambda: [x.abs() + (alpha * p).abs() + (gamma * s).abs()],
             4 * n * 4 + 2 * 4, 4 * n, None, ("copy_ms", lambda: copy.copy_(x)),
         ),
-        "residual_dots": (
-            lambda: cg_fused.residual_dots(x, p, s, gamma),
-            lambda: ref.residual_dots_ref(x, p, s, gamma),
-            lambda: [d(x) - d(gamma) * d(p), ((d(x) - d(gamma) * d(p)) * d(s)).sum(),
-                     ((d(x) - d(gamma) * d(p)) ** 2).sum()],
-            lambda: [x.abs() + (gamma * p).abs(),
-                     ((x - gamma * p) * s).abs().sum(),
-                     ((x - gamma * p) ** 2).sum()],
-            4 * n * 4 + 3 * 4, 6 * n, None, None,
-        ),
+        "residual_dots": res(s),
+        RESIDUAL_ALIASED: res(x),
     }
     return {k: cases[k] for k in names}
 
@@ -486,10 +504,24 @@ def _krylov_errors(torch, name, kern, plain, exact, terms):
     return abs_err, rel(want), rel(ref64)
 
 
+def _check_aliased_bits(torch, cg_fused, x, p, gamma, where):
+    """Fails unless ``residual_dots`` with r0s = x itself (the kernel's
+    aliased form) gives the bits of the call with r0s a copy of x at x's
+    offset mod 16 bytes (the general form, in the same order)."""
+    n, off = x.shape[0], x.data_ptr() % 16 // 4
+    copy = torch.empty(n + 3, device=x.device)[off:off + n].copy_(x)
+    one, two = cg_fused.residual_dots(x, p, x, gamma), cg_fused.residual_dots(x, p, copy, gamma)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(one, two)):
+        fail(f"residual_dots {where}: r0s = s and a copy of s give different bits")
+
+
 def phase_kernels(torch, cg_fused, ref, label="kernel"):
-    """Each Krylov kernel against its plain version and float64 at N_MAIN
-    and N_RAGGED, and at N_MAIN on the views of ``KRYLOV_OFFSETS``;
-    returns the records at N_MAIN, aligned, keyed by name."""
+    """Each Krylov kernel, and ``residual_dots`` with r0s = s, against its
+    plain version and float64 at N_MAIN and N_RAGGED, and at N_MAIN on the
+    views of ``KRYLOV_OFFSETS``, r0s = s with the bits of r0s = a copy of
+    s; returns the records of ``KRYLOV_NAMES`` at N_MAIN, aligned, keyed by
+    name."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB
     alpha = torch.tensor([0.37], device="cuda")
@@ -499,7 +531,7 @@ def phase_kernels(torch, cg_fused, ref, label="kernel"):
             (N_MAIN, o) for o in KRYLOV_OFFSETS[1:]]:
         x, p, s = (torch.randn(n + 3, device="cuda", generator=gen)[o:o + n] for o in offs)
         cases = _krylov_cases(torch, cg_fused, ref, x, p, s, alpha, gamma,
-                              ("dot2", "x_update", "residual_dots"))
+                              KRYLOV_NAMES + (RESIDUAL_ALIASED,))
         for name, (kern, plain, exact, terms, nb, nf, library, yard) in cases.items():
             abs_err, rel_err, rel_f64 = _krylov_errors(torch, name, kern, plain, exact, terms)
             b_ms, b_by = bound_ms(nb, nf)
@@ -520,19 +552,21 @@ def phase_kernels(torch, cg_fused, ref, label="kernel"):
             if not (rel_err <= TOL and rel_f64 <= TOL):
                 fail(f"{name} at n={n}, offsets {offs}: relative error {rel_err} "
                      f"(float64: {rel_f64}) > {TOL}")
-            if n == N_MAIN and offs == (0, 0, 0):
+            if n == N_MAIN and offs == (0, 0, 0) and name in KRYLOV_NAMES:
                 records[name] = rec
+        _check_aliased_bits(torch, cg_fused, x, p, gamma, f"at n={n}, offsets {offs}")
     del flush
     torch.cuda.empty_cache()
     return records
 
 
 def phase_krylov_large(torch, cg_fused, ref, label="kernel"):
-    """``dot2`` and ``x_update`` at the transformer slice's flat length
-    (QWEN_PARAMS) against their plain versions and float64, under the gate of
-    ``phase_kernels``: ms with L2 cold (median and least of 9 calls),
-    the byte bound, the achieved GB/s, the plain version's ms, for ``dot2``
-    two ``torch.dot`` calls, and the yardstick of ``_krylov_cases``. Each
+    """``dot2``, ``x_update`` and both forms of ``residual_dots`` at the
+    transformer slice's flat length (QWEN_PARAMS) against their plain
+    versions and float64, under the gates of ``phase_kernels``: ms with L2
+    cold (median and least of 9 calls), the byte bound, the achieved GB/s,
+    the plain version's ms, for ``dot2`` two ``torch.dot`` calls, and the
+    yardstick of ``_krylov_cases``. Each
     kernel is timed first, after 10 calls back to back: right after
     ``torch.cuda.empty_cache()`` hands GB back to the driver, the same
     kernel ran up to 18% slower for several calls on an H100. Frees its
@@ -543,7 +577,8 @@ def phase_krylov_large(torch, cg_fused, ref, label="kernel"):
     alpha = torch.tensor([0.37], device="cuda")
     gamma = torch.tensor([-1.3], device="cuda")
     x, p, s = (torch.randn(n, device="cuda", generator=gen) for _ in range(3))
-    cases = _krylov_cases(torch, cg_fused, ref, x, p, s, alpha, gamma, ("dot2", "x_update"))
+    cases = _krylov_cases(torch, cg_fused, ref, x, p, s, alpha, gamma,
+                          KRYLOV_NAMES + (RESIDUAL_ALIASED,))
     for name, (kern, plain, exact, terms, nb, nf, library, yard) in cases.items():
         for _ in range(10):
             kern()
@@ -563,6 +598,7 @@ def phase_krylov_large(torch, cg_fused, ref, label="kernel"):
         print(f"[{label}] {name} large: {json.dumps(rec)}", flush=True)
         if not (rel_err <= TOL and rel_f64 <= TOL):
             fail(f"{name} at n={n}: relative error {rel_err} (float64: {rel_f64}) > {TOL}")
+    _check_aliased_bits(torch, cg_fused, x, p, gamma, f"at n={n}")
     del x, p, s, cases, flush
     torch.cuda.empty_cache()
 
@@ -967,12 +1003,10 @@ def phase_profile(torch, model, params, state, batch, hvp_batch):
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}", flush=True)
-    # Each wrapper call is one launch of its kernel (residual_dots: its
-    # partial pass, then sum2_final), so the profiler's counts must equal
-    # the wrappers' counts over the profiled step.
+    # Each wrapper call is one launch of its kernel, so the profiler's counts
+    # must equal the wrappers' counts over the profiled step.
     for name, wrapper in (("dot2_single", "dot2"), ("x_update", "x_update"),
-                          ("residual_dots_partial", "residual_dots"),
-                          ("sum2_final", "residual_dots")):
+                          ("residual_dots_single", "residual_dots")):
         own = [e for e in kern if name in e.key]
         count = sum(e.count for e in own)
         print(f"[profile] port kernel {name}: "

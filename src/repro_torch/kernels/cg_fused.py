@@ -90,7 +90,9 @@ def x_update(x, p, s, alpha, gamma):
 
 
 def residual_dots(s, As, r0s, gamma):
-    """r = s - gamma*As; returns (r, <r,r0s>, <r,r>)."""
+    """r = s - gamma*As; returns (r, <r,r0s>, <r,r>), in one launch. r0s may
+    be s itself (the CG solver's call), which reads three streams instead of
+    four; an r0s that overlaps s otherwise is refused."""
     n = s.shape[0] if isinstance(s, torch.Tensor) and s.ndim == 1 else -1
     for t, name in ((s, "s"), (As, "As"), (r0s, "r0s")):
         _check_vec(t, name, n)

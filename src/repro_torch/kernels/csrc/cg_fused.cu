@@ -3,8 +3,7 @@
 // Replaces the Pallas TPU kernels of src/repro/kernels/cg_fused.py:
 //   dot2_single                 <- _dot2_kernel / dot2            (<u,v>, <v,v>)
 //   x_update                    <- _x_update_kernel / x_update    x + a*p + g*s
-//   residual_dots_partial + sum2_final
-//                               <- _residual_dots_kernel / residual_dots
+//   residual_dots_single        <- _residual_dots_kernel / residual_dots
 //                                  r = s - g*As, <r,r0s>, <r,r>
 //   dots_block_partial + gram_final
 //                               <- _dots_block_kernel / dots_block
@@ -18,42 +17,51 @@
 // which the flat Krylov backend's parity needs; the order of summation
 // depends on n, the inputs' alignment and the SM count, never on timing.
 //
-// dot2 and x_update are what is left of a Krylov iteration once its products
-// are taken: a few MB at the MLP's n = 1,722,293, where the launch, the
-// tail and a cold L2 cost as much as the bytes, and GB at a transformer's n,
-// where only the bytes in flight count. Both launch at most one resident wave (the SM count
-// times the blocks of 256 threads that fit an SM, read once per device;
+// dot2, x_update and residual_dots are what is left of a Krylov iteration
+// once its products are taken: a few MB at the MLP's n = 1,722,293, where
+// the launch, the tail and a cold L2 cost as much as the bytes, and GB at a
+// transformer's n, where only the bytes in flight count. All three launch at
+// most one resident wave (the SM count times the blocks of 256 threads that
+// fit an SM, read once per device;
 // fewer blocks at small n, see stream_blocks) and walk the vectors as
 // "vectors" of four consecutive floats: thread t of the G in the grid takes
 // vectors t, t + G, t + 2G, ..., kDotUnroll (dot2) or kAxpyUnroll
-// (x_update) of them per operand loaded before any is used.
+// (x_update, residual_dots) of them per operand loaded before any is used.
 // Where every operand has the same address mod 16 bytes, a vector is one
 // 16-byte load (__ldg); the first h < 4 elements (the head, up to the first
 // 16-byte boundary) and the last (n - h) mod 4 (the tail) are taken one
 // element each by threads 0, 1, 2 of the grid. Where the offsets differ (a
 // row of an (s, n) block with odd n against a fresh vector), the same kernel
-// runs with four 4-byte loads a vector and no head. x_update lays its fresh
-// output at x's offset mod 16 (the binding allocates n + 3 floats and
-// returns a view), so one shared offset of x, p and s is enough. The TPU
+// runs with four 4-byte loads a vector and no head. x_update and
+// residual_dots lay their fresh output at the offset mod 16 of their first
+// operand (x, s; the binding allocates n + 3 floats and returns a view), so
+// one shared offset of the inputs is enough. The TPU
 // kernels zero-padded n up to their 64k block and carried one partial per
 // grid step; here the ragged head and tail are masked.
 //
-// dot2 is one launch. Each thread keeps one f32 fma chain per lane of its
-// vectors (four for <u,v>, four for <v,v>), ends with the head and tail
-// elements in lane 0, and adds its lanes as (l0 + l1) + (l2 + l3); the block
-// adds its threads by the warp shuffle tree of block_sum2 and writes its two
-// partials to a scratch slot. Then thread 0 fences and takes a ticket from a
-// counter (atomicAdd); the block that draws the last ticket reads every
-// slot back from L2, adds them in a fixed order (thread i the slots i,
-// i + 256, ..., then block_sum2), writes out[0..1] and sets the counter back
-// to 0. A last-block counter and not a cooperative launch with a grid sync:
-// every other block exits as soon as its partials are out, and the launch
-// is an ordinary one. The binding owns the scratch and the counter, one
-// buffer per device and stream, zeroed once, so two dot2s in flight on two
-// streams never share a counter and no memset is launched per call.
+// dot2 and residual_dots are one launch each. Each thread keeps one f32 fma
+// chain per lane of its vectors for each of its two dots (four lanes each),
+// ends with the head and tail elements in lane 0, and adds its lanes as
+// (l0 + l1) + (l2 + l3); the block adds its threads by the warp shuffle tree
+// of block_sum2 and writes its two partials to a scratch slot. Then thread 0
+// fences and takes a ticket from a counter (atomicAdd); the block that draws
+// the last ticket reads every slot back from L2, adds them in a fixed order
+// (thread i the slots i, i + 256, ..., then block_sum2), writes out[0..1]
+// and sets the counter back to 0. A last-block counter and not a cooperative
+// launch with a grid sync: every other block exits as soon as its partials
+// are out, and the launch is an ordinary one. The binding owns the scratch
+// and the counter, one buffer per device and stream that both kernels share
+// (launches on one stream never overlap, and each leaves the counter at 0),
+// zeroed once, so two reductions in flight on two streams never share a
+// counter and no memset is launched per call.
 //
-// residual_dots still writes one partial per block and sum2_final adds the
-// slots in a fixed order in one block (two launches).
+// residual_dots computes r = s - g*As as one fma (one rounding), writes it,
+// and feeds the same rounded r to both dots. The CG solver calls it with
+// r0s = s (the flat backend passes s itself); that form is a template
+// variant that never reads r0s and takes <r, s> from the s it has loaded:
+// three streams instead of four, in the general form's order of summation
+// and on its grid, so that r0s = s and a copy of s at s's offset give the
+// same bits.
 //
 // dots_block is bound by bytes too: at the s-step shapes (s_u <= 17 rows
 // against s_v <= 20, n = 1.7M) it does s_u*s_v / (s_u + s_v) ~ 9 FMAs per
@@ -92,7 +100,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxReduceBlocks = 1024;
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
@@ -119,45 +126,11 @@ __device__ __forceinline__ void block_sum2(float v[2]) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-residual_dots_partial(const float* __restrict__ s, const float* __restrict__ As,
-                      const float* r0s, const float* __restrict__ gamma, int64_t n,
-                      float* __restrict__ r, float* __restrict__ part) {
-  const float g = *gamma;
-  float acc[2] = {0.f, 0.f};
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n; i += stride) {
-    const float ri = s[i] - g * As[i];
-    r[i] = ri;
-    acc[0] += ri * r0s[i];
-    acc[1] += ri * ri;
-  }
-  block_sum2(acc);
-  if (threadIdx.x == 0) {
-    part[blockIdx.x] = acc[0];
-    part[gridDim.x + blockIdx.x] = acc[1];
-  }
-}
-
-// One block: out[0] = sum(part[0:nb]), out[1] = sum(part[nb:2nb]), fixed order.
-__global__ void __launch_bounds__(kThreads)
-sum2_final(const float* __restrict__ part, int nb, float* __restrict__ out) {
-  float acc[2] = {0.f, 0.f};
-  for (int i = threadIdx.x; i < nb; i += kThreads) {
-    acc[0] += part[i];
-    acc[1] += part[nb + i];
-  }
-  block_sum2(acc);
-  if (threadIdx.x == 0) {
-    out[0] = acc[0];
-    out[1] = acc[1];
-  }
-}
-
 // -------------------------------------------------------- dot2, x_update --
 constexpr int kDotUnroll = 4;      // vectors of each operand in flight, dot2
-constexpr int kAxpyUnroll = 2;     // the same, x_update (three operands)
-constexpr int kMaxStreamBlocks = 4096;  // scratch slots of dot2 (132 SMs x 8 need 1056)
+constexpr int kAxpyUnroll = 2;     // the same, x_update and residual_dots (three operands)
+constexpr int kMaxStreamBlocks = 4096;  // scratch slots (132 SMs x 8 need 1056)
+constexpr int kFinishAhead = 8;    // slots a thread of the last block loads before adding
 
 // Elements 4j..4j+3 from p: one 16-byte load where kVec (p 16-byte aligned),
 // else four 4-byte loads.
@@ -178,6 +151,51 @@ __device__ __forceinline__ void store4(float* __restrict__ p, int64_t j, float4 
     q[1] = w.y;
     q[2] = w.z;
     q[3] = w.w;
+  }
+}
+
+// The end of a one-launch reduction (header): the block adds acc over its
+// threads, writes its two partials to its slots and draws a ticket; the
+// block that draws the last adds every slot in a fixed order from L2, writes
+// out[0..1] and sets *count back to 0. part holds 2 * gridDim.x slots.
+__device__ __forceinline__ void finish_sum2(float acc[2], float* __restrict__ part,
+                                            unsigned int* __restrict__ count,
+                                            float* __restrict__ out) {
+  block_sum2(acc);
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    part[blockIdx.x] = acc[0];
+    part[gridDim.x + blockIdx.x] = acc[1];
+    __threadfence();  // the slots are visible before the ticket is drawn
+    last = atomicAdd(count, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // Thread i adds slots i, i + kThreads, ... in order, from L2 (other SMs
+  // wrote them), with the loads of kFinishAhead slots in flight before
+  // their adds.
+  const int nb = (int)gridDim.x;
+  float sum[2] = {0.f, 0.f};
+  for (int b0 = threadIdx.x; b0 < nb; b0 += kFinishAhead * kThreads) {
+    float a[kFinishAhead], c[kFinishAhead];
+#pragma unroll
+    for (int k = 0; k < kFinishAhead; ++k) {
+      const int b = b0 + k * kThreads;
+      a[k] = b < nb ? __ldcg(part + b) : 0.f;
+      c[k] = b < nb ? __ldcg(part + nb + b) : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < kFinishAhead; ++k) {
+      sum[0] += a[k];
+      sum[1] += c[k];
+    }
+  }
+  block_sum2(sum);
+  if (threadIdx.x == 0) {
+    out[0] = sum[0];
+    out[1] = sum[1];
+    *count = 0u;
   }
 }
 
@@ -227,29 +245,7 @@ dot2_single(const float* __restrict__ u, const float* __restrict__ v, int64_t n,
     vv[0] = fmaf(b, b, vv[0]);
   }
   float acc[2] = {(uv[0] + uv[1]) + (uv[2] + uv[3]), (vv[0] + vv[1]) + (vv[2] + vv[3])};
-  block_sum2(acc);
-
-  __shared__ bool last;
-  if (threadIdx.x == 0) {
-    part[blockIdx.x] = acc[0];
-    part[gridDim.x + blockIdx.x] = acc[1];
-    __threadfence();  // the slots are visible before the ticket is drawn
-    last = atomicAdd(count, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  float sum[2] = {0.f, 0.f};
-  for (int b = threadIdx.x; b < (int)gridDim.x; b += kThreads) {
-    sum[0] += __ldcg(part + b);  // from L2: other SMs wrote the slots
-    sum[1] += __ldcg(part + gridDim.x + b);
-  }
-  block_sum2(sum);
-  if (threadIdx.x == 0) {
-    out[0] = sum[0];
-    out[1] = sum[1];
-    *count = 0u;
-  }
+  finish_sum2(acc, part, count, out);
 }
 
 // out = x + alpha*p + gamma*s, elementwise (header); out shares x's offset
@@ -295,16 +291,75 @@ x_update(const float* __restrict__ x, const float* __restrict__ p,
   }
 }
 
+// r = s - gamma*As into r, (<r,r0s>, <r,r>) into out[0..1], in one launch
+// (header); r shares s's offset mod 16 bytes, so the head h is the same for
+// every operand. kAlias: r0s is s and is not read, the loaded s stands in
+// for it (the same order of summation). part and count as in dot2_single.
+template <bool kVec, bool kAlias>
+__global__ void __launch_bounds__(kThreads)
+residual_dots_single(const float* __restrict__ s, const float* __restrict__ As,
+                     const float* __restrict__ r0s, const float* __restrict__ gamma,
+                     int64_t n, int h, float* __restrict__ r, float* __restrict__ part,
+                     unsigned int* __restrict__ count, float* __restrict__ out) {
+  const float ng = -__ldg(gamma);
+  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t G = (int64_t)gridDim.x * kThreads;
+  const int64_t m = (n - h) >> 2;
+  float rw[4] = {0.f, 0.f, 0.f, 0.f}, rr[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int64_t j0 = t; j0 < m; j0 += G * kAxpyUnroll) {
+    float4 sv[kAxpyUnroll], av[kAxpyUnroll], wv[kAxpyUnroll];
+#pragma unroll
+    for (int k = 0; k < kAxpyUnroll; ++k) {
+      const int64_t j = j0 + k * G;
+      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+      sv[k] = j < m ? load4<kVec>(s + h, j) : z;
+      av[k] = j < m ? load4<kVec>(As + h, j) : z;
+      if (!kAlias) wv[k] = j < m ? load4<kVec>(r0s + h, j) : z;
+    }
+#pragma unroll
+    for (int k = 0; k < kAxpyUnroll; ++k) {
+      const int64_t j = j0 + k * G;
+      const float4 w = kAlias ? sv[k] : wv[k];
+      float4 o;
+      o.x = fmaf(ng, av[k].x, sv[k].x);
+      o.y = fmaf(ng, av[k].y, sv[k].y);
+      o.z = fmaf(ng, av[k].z, sv[k].z);
+      o.w = fmaf(ng, av[k].w, sv[k].w);
+      if (j < m) store4<kVec>(r + h, j, o);
+      rw[0] = fmaf(o.x, w.x, rw[0]);
+      rw[1] = fmaf(o.y, w.y, rw[1]);
+      rw[2] = fmaf(o.z, w.z, rw[2]);
+      rw[3] = fmaf(o.w, w.w, rw[3]);
+      rr[0] = fmaf(o.x, o.x, rr[0]);
+      rr[1] = fmaf(o.y, o.y, rr[1]);
+      rr[2] = fmaf(o.z, o.z, rr[2]);
+      rr[3] = fmaf(o.w, o.w, rr[3]);
+    }
+  }
+  auto one = [&](int64_t i) {  // element i, into lane 0
+    const float a = __ldg(s + i);
+    const float ri = fmaf(ng, __ldg(As + i), a);
+    r[i] = ri;
+    rw[0] = fmaf(ri, kAlias ? a : __ldg(r0s + i), rw[0]);
+    rr[0] = fmaf(ri, ri, rr[0]);
+  };
+  if (t < h) one(t);                          // head element t
+  if (t < ((n - h) & 3)) one(h + 4 * m + t);  // tail element t
+  float acc[2] = {(rw[0] + rw[1]) + (rw[2] + rw[3]), (rr[0] + rr[1]) + (rr[2] + rr[3])};
+  finish_sum2(acc, part, count, out);
+}
+
 // The SM count and one resident wave of a kernel (blocks of kThreads), read
 // once per device and instance; kinds: 0, 1 dot2 (4-byte, 16-byte body),
-// 2, 3 x_update.
+// 2, 3 x_update, 4, 5 residual_dots (general form; the aliased form runs on
+// its grid).
 struct Wave {
   int sms, resident;
 };
 
 Wave wave(int kind) {
   constexpr int kMaxDevices = 64;
-  static Wave cache[kMaxDevices][4] = {};
+  static Wave cache[kMaxDevices][6] = {};
   int dev = 0;
   cudaGetDevice(&dev);
   Wave& w = cache[dev < kMaxDevices ? dev : 0][kind];
@@ -312,7 +367,9 @@ Wave wave(int kind) {
     const void* k = kind == 0 ? (const void*)dot2_single<false>
                   : kind == 1 ? (const void*)dot2_single<true>
                   : kind == 2 ? (const void*)x_update<false>
-                              : (const void*)x_update<true>;
+                  : kind == 3 ? (const void*)x_update<true>
+                  : kind == 4 ? (const void*)residual_dots_single<false, false>
+                              : (const void*)residual_dots_single<true, false>;
     int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, kThreads, 0);
@@ -526,22 +583,15 @@ gram_final(const float* __restrict__ part, int nb, int entries, float* __restric
   }
 }
 
-int blocks_for(int64_t n, int cap) {
-  const int64_t b = (n + kThreads - 1) / kThreads;
-  return (int)(b < 1 ? 1 : (b > cap ? cap : b));
-}
-
 }  // namespace
 
 extern "C" {
 
-// Number of partial-sum slots (thread blocks) the reductions use for n elements.
-int cg_reduce_blocks(int64_t n) { return blocks_for(n, kMaxReduceBlocks); }
+// Floats of a stream's reduction scratch (dot2, residual_dots): 2 slots a
+// block, then the counter.
+int cg_reduce_scratch_floats() { return 2 * kMaxStreamBlocks + 1; }
 
-// Floats of dot2's scratch: 2 slots a block, then the counter.
-int cg_dot2_scratch_floats() { return 2 * kMaxStreamBlocks + 1; }
-
-// scratch: cg_dot2_scratch_floats() floats whose last is a zeroed counter,
+// scratch: cg_reduce_scratch_floats() floats whose last is a zeroed counter,
 // owned by the caller for this stream alone.
 void cg_dot2(const float* u, const float* v, int64_t n, float* scratch, float* out,
              cudaStream_t stream) {
@@ -556,14 +606,22 @@ void cg_dot2(const float* u, const float* v, int64_t n, float* scratch, float* o
   }
 }
 
-void cg_residual_dots_partial(const float* s, const float* As, const float* r0s,
-                              const float* gamma, int64_t n, float* r, float* part,
-                              int nb, cudaStream_t stream) {
-  residual_dots_partial<<<nb, kThreads, 0, stream>>>(s, As, r0s, gamma, n, r, part);
-}
-
-void cg_sum2_final(const float* part, int nb, float* out, cudaStream_t stream) {
-  sum2_final<<<1, kThreads, 0, stream>>>(part, nb, out);
+// r must have s's address mod 16 bytes; r0s is s itself (the aliased form,
+// r0s not read) or does not overlap s. scratch as for cg_dot2.
+void cg_residual_dots(const float* s, const float* As, const float* r0s, const float* gamma,
+                      int64_t n, float* r, float* scratch, float* out, cudaStream_t stream) {
+  const bool alias = r0s == s;
+  const int h = head_of(s, As, alias ? s : r0s, n);
+  unsigned int* count = reinterpret_cast<unsigned int*>(scratch + 2 * kMaxStreamBlocks);
+  if (h >= 0) {
+    const int nb = stream_blocks(5, (n - h) >> 2, kAxpyUnroll);
+    auto k = alias ? residual_dots_single<true, true> : residual_dots_single<true, false>;
+    k<<<nb, kThreads, 0, stream>>>(s, As, r0s, gamma, n, h, r, scratch, count, out);
+  } else {
+    const int nb = stream_blocks(4, n >> 2, kAxpyUnroll);
+    auto k = alias ? residual_dots_single<false, true> : residual_dots_single<false, false>;
+    k<<<nb, kThreads, 0, stream>>>(s, As, r0s, gamma, n, 0, r, scratch, count, out);
+  }
 }
 
 // out must have x's address mod 16 bytes.

@@ -26,14 +26,11 @@
 #include "ssd_scan.h"
 
 extern "C" {
-int cg_reduce_blocks(int64_t n);
-int cg_dot2_scratch_floats();
+int cg_reduce_scratch_floats();
 void cg_dot2(const float* u, const float* v, int64_t n, float* scratch, float* out,
              cudaStream_t stream);
-void cg_residual_dots_partial(const float* s, const float* As, const float* r0s,
-                              const float* gamma, int64_t n, float* r, float* part,
-                              int nb, cudaStream_t stream);
-void cg_sum2_final(const float* part, int nb, float* out, cudaStream_t stream);
+void cg_residual_dots(const float* s, const float* As, const float* r0s, const float* gamma,
+                      int64_t n, float* r, float* scratch, float* out, cudaStream_t stream);
 void cg_x_update(const float* x, const float* p, const float* s, const float* alpha,
                  const float* gamma, int64_t n, float* out, cudaStream_t stream);
 int cg_gram_max_rows();
@@ -66,26 +63,29 @@ void check_len(const at::Tensor& t) {
   TORCH_CHECK(t.dim() == 1 && t.size(0) > 0, "vectors must be 1-D and non-empty");
 }
 
-// dot2's scratch slots and counter for one device and stream, zeroed at
-// first use and kept for the process: every dot2 leaves its counter at 0,
-// and launches on one stream never overlap. Never freed (the map outlives
-// the CUDA context's teardown at exit).
-float* dot2_scratch(const at::Tensor& like, cudaStream_t stream) {
+// The stream's reduction scratch: the partial slots and the counter of the
+// one-launch reductions (dot2, residual_dots) for one device and stream,
+// zeroed at first use and kept for the process. Both kernels share it:
+// each leaves its counter at 0, and launches on one stream never overlap.
+// Never freed (the map outlives the CUDA context's teardown at exit).
+float* reduce_scratch(const at::Tensor& like, cudaStream_t stream) {
   static std::mutex mu;
   static auto* bufs = new std::map<std::pair<int, cudaStream_t>, at::Tensor>();
   std::lock_guard<std::mutex> lock(mu);
   const auto key = std::make_pair((int)like.get_device(), stream);
   auto it = bufs->find(key);
   if (it == bufs->end())
-    it = bufs->emplace(key, at::zeros({cg_dot2_scratch_floats()}, like.options())).first;
+    it = bufs->emplace(key, at::zeros({cg_reduce_scratch_floats()}, like.options())).first;
   return it->second.data_ptr<float>();
 }
 
-at::Tensor sum2(const at::Tensor& part, int nb, cudaStream_t stream) {
-  auto out = at::empty({2}, part.options());
-  cg_sum2_final(part.data_ptr<float>(), nb, out.data_ptr<float>(), stream);
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
-  return out;
+// A fresh vector of n floats at like's address mod 16 bytes (a view into
+// n + 3 floats), so that a kernel's 16-byte body covers it wherever like
+// and the other operands share an offset.
+at::Tensor empty_at_offset_of(const at::Tensor& like) {
+  const int64_t n = like.size(0);
+  const int64_t off = (int64_t)((reinterpret_cast<uintptr_t>(like.data_ptr<float>()) & 15) / 4);
+  return at::empty({n + 3}, like.options()).narrow(0, off, n);
 }
 
 }  // namespace
@@ -98,7 +98,7 @@ at::Tensor dot2(const at::Tensor& u, const at::Tensor& v) {
   c10::cuda::CUDAGuard guard(u.device());
   cudaStream_t stream = c10::cuda::getCurrentCUDAStream().stream();
   auto out = at::empty({2}, u.options());
-  cg_dot2(u.data_ptr<float>(), v.data_ptr<float>(), u.size(0), dot2_scratch(u, stream),
+  cg_dot2(u.data_ptr<float>(), v.data_ptr<float>(), u.size(0), reduce_scratch(u, stream),
           out.data_ptr<float>(), stream);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
@@ -115,19 +115,16 @@ at::Tensor x_update(const at::Tensor& x, const at::Tensor& p, const at::Tensor& 
   check_scalar(gamma, "gamma", x);
   c10::cuda::CUDAGuard guard(x.device());
   cudaStream_t stream = c10::cuda::getCurrentCUDAStream().stream();
-  // out at x's offset mod 16 bytes (a view into n + 3 floats), so that the
-  // kernel's 16-byte body covers out wherever x, p and s share an offset.
-  const int64_t n = x.size(0);
-  const int64_t off = (int64_t)((reinterpret_cast<uintptr_t>(x.data_ptr<float>()) & 15) / 4);
-  auto out = at::empty({n + 3}, x.options()).narrow(0, off, n);
+  auto out = empty_at_offset_of(x);
   cg_x_update(x.data_ptr<float>(), p.data_ptr<float>(), s.data_ptr<float>(),
-              alpha.data_ptr<float>(), gamma.data_ptr<float>(), n, out.data_ptr<float>(),
-              stream);
+              alpha.data_ptr<float>(), gamma.data_ptr<float>(), x.size(0),
+              out.data_ptr<float>(), stream);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
 }
 
-// r = s - gamma*As; returns [r, (<r,r0s>, <r,r>) as a (2,) tensor].
+// r = s - gamma*As; returns [r, (<r,r0s>, <r,r>) as a (2,) tensor], in one
+// launch. r0s may be s itself (the CG call): that form reads three streams.
 std::vector<at::Tensor> residual_dots(const at::Tensor& s, const at::Tensor& As,
                                       const at::Tensor& r0s, const at::Tensor& gamma) {
   check_len(s);
@@ -135,17 +132,20 @@ std::vector<at::Tensor> residual_dots(const at::Tensor& s, const at::Tensor& As,
   check_vec(As, "As", s);
   check_vec(r0s, "r0s", s);
   check_scalar(gamma, "gamma", s);
+  const int64_t n = s.size(0);
+  const auto sa = reinterpret_cast<uintptr_t>(s.data_ptr<float>());
+  const auto wa = reinterpret_cast<uintptr_t>(r0s.data_ptr<float>());
+  TORCH_CHECK(wa == sa || wa + 4 * n <= sa || sa + 4 * n <= wa,
+              "r0s must be s itself or not overlap it");
   c10::cuda::CUDAGuard guard(s.device());
   cudaStream_t stream = c10::cuda::getCurrentCUDAStream().stream();
-  const int64_t n = s.size(0);
-  const int nb = cg_reduce_blocks(n);
-  auto r = at::empty_like(s);
-  auto part = at::empty({2 * nb}, s.options());
-  cg_residual_dots_partial(s.data_ptr<float>(), As.data_ptr<float>(), r0s.data_ptr<float>(),
-                           gamma.data_ptr<float>(), n, r.data_ptr<float>(),
-                           part.data_ptr<float>(), nb, stream);
+  auto r = empty_at_offset_of(s);
+  auto out = at::empty({2}, s.options());
+  cg_residual_dots(s.data_ptr<float>(), As.data_ptr<float>(), r0s.data_ptr<float>(),
+                   gamma.data_ptr<float>(), n, r.data_ptr<float>(), reduce_scratch(s, stream),
+                   out.data_ptr<float>(), stream);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
-  return {r, sum2(part, nb, stream)};
+  return {r, out};
 }
 
 // The (su, sv) Gram matrix U V^T of two stacked (rows, n) f32 blocks.

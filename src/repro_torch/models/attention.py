@@ -17,6 +17,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .._device import resolve_device
 from .layers import apply_rope, dense, dense_init
 
 NEG_INF = -1e30
@@ -54,9 +55,11 @@ def _sdpa(q, k, v, mask):
     return out.reshape(B, S, H, hd).to(q.dtype)
 
 
-def causal_mask(S, T=None, *, window: Optional[int] = None, offset: int = 0, device="cpu"):
-    """(1, 1, S, T) bool; query i attends keys j ≤ i+offset and, with a
-    window, j > i+offset-window."""
+def causal_mask(S, T=None, *, window: Optional[int] = None, offset: int = 0, device="cuda"):
+    """(1, 1, S, T) bool on ``device`` (the card unless the caller asks for
+    the CPU); query i attends keys j ≤ i+offset and, with a window,
+    j > i+offset-window."""
+    device = resolve_device(device)
     T = T if T is not None else S
     qi = torch.arange(S, device=device)[:, None] + offset
     kj = torch.arange(T, device=device)[None, :]
@@ -125,10 +128,12 @@ def _window(cfg, max_len):
     return min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
 
 
-def init_kv_cache(cfg, batch, max_len, dtype, *, ragged=False, device="cpu") -> KVCache:
-    """Dense rolling cache of W = min(max_len, window) slots. ``ragged=True``
-    gives per-sequence slot positions pos (B, W), the continuous-batching
-    layout where every batch slot sits at its own decode position."""
+def init_kv_cache(cfg, batch, max_len, dtype, *, ragged=False, device="cuda") -> KVCache:
+    """Dense rolling cache of W = min(max_len, window) slots on ``device``
+    (the card unless the caller asks for the CPU). ``ragged=True`` gives
+    per-sequence slot positions pos (B, W), the continuous-batching layout
+    where every batch slot sits at its own decode position."""
+    device = resolve_device(device)
     W = _window(cfg, max_len)
     KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     return KVCache(

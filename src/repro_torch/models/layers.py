@@ -16,6 +16,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .._device import resolve_device
+
 
 def dtype_of(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
@@ -41,7 +43,10 @@ def dense(p, x):
     return y
 
 
-def norm_init(d, dtype, kind="rmsnorm", lead=(), device="cpu"):
+def norm_init(d, dtype, kind="rmsnorm", lead=(), device="cuda"):
+    """Norm parameters on ``device`` (the card unless the caller asks for
+    the CPU): scale 1 and, for a layernorm, bias 0."""
+    device = resolve_device(device)
     p = {}
     if kind == "layernorm":
         p["bias"] = torch.zeros(tuple(lead) + (d,), dtype=dtype, device=device)
@@ -94,8 +99,10 @@ def unembed(p, x):
 
 
 # ---------------------------------------------------------------- RoPE ----
-def rope_freqs(head_dim, rope_fraction, theta, device="cpu"):
-    """Rotary frequencies over the first ``fraction`` of the head dim."""
+def rope_freqs(head_dim, rope_fraction, theta, device="cuda"):
+    """Rotary frequencies over the first ``fraction`` of the head dim, on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     rot = int(head_dim * rope_fraction)
     rot -= rot % 2
     inv = 1.0 / (theta ** (torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot))

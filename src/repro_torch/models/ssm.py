@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .._device import resolve_device
 from .layers import _randn, apply_norm, dense, dense_init, norm_init
 
 
@@ -196,7 +197,10 @@ def apply_mamba(p, x, cfg, h0=None, conv0=None, *, ssd_kernel=False):
     return dense(p["out_proj"], y), MambaCache(conv_tail.contiguous(), h_final.contiguous())
 
 
-def init_mamba_cache(cfg, batch, dtype, device="cpu") -> MambaCache:
+def init_mamba_cache(cfg, batch, dtype, device="cuda") -> MambaCache:
+    """Zeroed conv tails and SSD states on ``device`` (the card unless the
+    caller asks for the CPU)."""
+    device = resolve_device(device)
     din, N = cfg.d_inner, cfg.ssm_state
     H, P = cfg.ssm_n_heads, cfg.ssm_head_dim
     return MambaCache(

@@ -7,7 +7,9 @@
   with bf16 inputs, where both round P and dS (the JVP's R and P) to bf16
   before the second product: f32 outputs within 1e-4, bf16 outputs within
   4e-3 (half a bf16 ulp at the largest magnitude); forward, dQ and JVP
-  also on the case with fully masked rows.
+  also on the case with fully masked rows and on the non-causal case, and
+  dK/dV on those two within 5e-4, a gate that the unrounded version
+  misses.
 * The two autograd Functions of ``kernels.flash_ad``: gradient, forward-mode
   JVP, the backward of the backward in dO (the GN product's J·v), and the
   second-order route under ``second_order_tangents()``.
@@ -163,6 +165,42 @@ def test_plain_version_matches_pallas_kernel_in_bf16_with_masked_rows(kernel):
         _assert_close([g], [w], BF16_TOL[g.dtype])
 
 
+@pytest.mark.parametrize("kernel", ("fwd", "dq", "jvp"))
+def test_plain_version_matches_pallas_kernel_in_bf16_noncausal(kernel):
+    """bf16 inputs on the "noncausal" case (no mask at all) at BF16_TOL."""
+    got, want = _plain_and_pallas("noncausal", kernel, "bfloat16")
+    for g, w in zip(got, want):
+        assert g.dtype == (torch.bfloat16 if w.dtype == ml_dtypes.bfloat16 else torch.float32)
+        _assert_close([g], [w], BF16_TOL[g.dtype])
+
+
+# The gate of bf16 dK/dV on "bias" and "noncausal", set before the run: 5e-4
+# of max|·| for dk_h and dv_h (both f32). Above the 2.3e-4 that the rounding
+# flips of P leave (see BF16_CASES), below the 1.7e-3 of a plain version that
+# rounds neither P nor dS, so that it still tells the two apart.
+BF16_DKV_TOL = 5e-4
+
+
+@pytest.mark.parametrize("case", ["bias", "noncausal"])
+def test_bf16_dkv_holds_a_gate_that_the_unrounded_version_misses(case):
+    """bf16 dK/dV on the two cases BF16_CASES leaves out, within
+    BF16_DKV_TOL of the Pallas kernel's; the plain version on the same bf16
+    values widened to f32 (where it rounds neither P nor dS) misses that
+    gate in both outputs."""
+    got, want = _plain_and_pallas(case, "dkv", "bfloat16")
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        _assert_close([g], [w], BF16_DKV_TOL)
+    x, kw, lse, delta, _ = _case(case, "bfloat16")
+    t = {n: _t(v).float() for n, v in x.items()}
+    tkw = dict(kw, bias=None if kw["bias"] is None else _t(kw["bias"]))
+    unrounded = ops.flash_attention_dkv(t["q"], t["k"], t["v"], t["do"], _t(lse), _t(delta),
+                                        **tkw)
+    for u, w in zip(unrounded, want):
+        w = np.asarray(w, np.float64)
+        assert np.abs(u.double().numpy() - w).max() / np.abs(w).max() > BF16_DKV_TOL
+
+
 # ------------------------------------------------------- the Functions --
 B, S, H, KV, HD = 2, 40, 4, 2, 32
 
@@ -174,7 +212,7 @@ def _qkv(seed=0, S=S):
 
 
 def _plain(q, k, v):
-    return _sdpa(q, k, v, causal_mask(q.shape[1]))
+    return _sdpa(q, k, v, causal_mask(q.shape[1], device="cpu"))
 
 
 def _flash(q, k, v):
@@ -250,7 +288,7 @@ def test_forward_over_reverse_outside_the_context_raises():
 
 def test_chunked_route_matches_sdpa_with_bias_and_window():
     q, k, v = _qkv(10)
-    mask = causal_mask(S, window=16)
+    mask = causal_mask(S, window=16, device="cpu")
     mask = mask & torch.tensor(np.random.default_rng(0).random((1, 1, S, S)) > 0.2)
     bias = torch.where(mask[:, 0], 0.0, flash_ad.NEG_INF)
     with flash_ad.second_order_tangents():

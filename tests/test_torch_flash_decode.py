@@ -379,7 +379,7 @@ def test_decode_attend_matches_reference(window, flash):
     jp, p = _attn_params(jcfg, 0)
     B = 2
     jc = jatt.init_kv_cache(jcfg, B, 32, jnp.float32)
-    c = att.init_kv_cache(cfg, B, 32, torch.float32)
+    c = att.init_kv_cache(cfg, B, 32, torch.float32, device="cpu")
     rng = np.random.default_rng(1)
     for t in range(14):
         x = rng.standard_normal((B, 1, jcfg.d_model)).astype(np.float32)
@@ -398,7 +398,7 @@ def test_decode_attend_ragged_matches_reference(flash):
     B = 3
     offsets = np.array([0, 2, 5], np.int32)
     jc = jatt.init_kv_cache(jcfg, B, 32, jnp.float32, ragged=True)
-    c = att.init_kv_cache(cfg, B, 32, torch.float32, ragged=True)
+    c = att.init_kv_cache(cfg, B, 32, torch.float32, ragged=True, device="cpu")
     rng = np.random.default_rng(3)
     for step in range(8):
         x = rng.standard_normal((B, 1, jcfg.d_model)).astype(np.float32)

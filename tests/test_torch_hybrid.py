@@ -39,7 +39,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.core.curvature import make_gnvp_op, make_hvp_op  # noqa: E402
 from repro_torch.core.hf import HFConfig, hf_init, hf_step  # noqa: E402
 from repro_torch.interop import (batch_from_numpy, hybrid_cache_from_numpy,  # noqa: E402
-                                 hybrid_cache_to_numpy, params_from_numpy)
+                                 hybrid_cache_to_numpy, params_from_numpy, params_to_numpy)
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch.serve import serve, serve_continuous  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
@@ -139,6 +139,57 @@ def test_logits_and_loss_match_the_reference(zamba, flash):
     assert logits.dtype == torch.float32
     assert _rel(logits.detach(), want_logits) <= TOL
     assert abs(float(m.loss_fn(zamba["tp"], zamba["tb"])) - want_loss) <= TOL
+
+
+@pytest.fixture(scope="module")
+def zamba_bf16():
+    """The reference's smoke model in bf16 (its own init; A_log, D and
+    dt_bias stay f32), its bf16 logits on a (2, 32) batch and, on the same
+    weights widened to f32, its f32 logits; the port's copies of weights and
+    batch."""
+    jcfg = jconfigs.get_smoke_config(ARCH).replace(dtype="bfloat16")
+    jm = j_build_model(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    jb = j_lm_batch(jax.random.PRNGKey(1), jcfg, 2, 32)
+    jp32 = jax.tree_util.tree_map(lambda x: x.astype(jnp.float32), jp)
+    return dict(jp=jp, cfg=configs.get_smoke_config(ARCH).replace(dtype="bfloat16"),
+                tp=params_from_numpy(_np(jp), "cpu"),
+                tb=batch_from_numpy({k: np.asarray(v) for k, v in jb.items()}, "cpu"),
+                ref_bf16=np.asarray(jm.logits_fn(jp, jb), np.float32),
+                ref_f32=np.asarray(j_build_model(jconfigs.get_smoke_config(ARCH)).logits_fn(
+                    jp32, jb)))
+
+
+@pytest.mark.parametrize("flash", [False, True], ids=["sdpa", "flash"])
+def test_bf16_logits_hold_the_reference_within_its_own_bf16_distance(zamba_bf16, flash):
+    """zamba2's smoke config in bf16 on both sides, under the gate of the
+    bf16 routes (the rule of the full-width bf16 checks in ``chip_smoke.py``),
+    set before the run: the weights cross
+    ``interop`` bit for bit; the port's bf16 logits, through plain attention
+    and through the flash kernels' plain versions, lie no farther from the
+    reference's f32 logits than 1.5x the reference's own bf16 logits do (max
+    |·| over max|f32 logit|); the loss is finite; and the argmax equals the
+    reference's bf16 argmax at every position where the reference's top-two
+    margin exceeds twice the largest absolute difference between the two
+    sides' bf16 logits (at least one such position)."""
+    leaves = lambda tree: [np.asarray(x) for x in jax.tree_util.tree_leaves(tree)]
+    for got, want in zip(leaves(params_to_numpy(zamba_bf16["tp"])), leaves(zamba_bf16["jp"])):
+        assert got.dtype == want.dtype
+        assert np.array_equal(got.view(np.uint8), want.view(np.uint8))
+    m = build_model(zamba_bf16["cfg"].replace(use_flash_attention=flash), device="cpu")
+    with torch.no_grad():
+        got = m.logits_fn(zamba_bf16["tp"], zamba_bf16["tb"]).double().numpy()
+        loss = float(m.loss_fn(zamba_bf16["tp"], zamba_bf16["tb"]))
+    ref_bf16, ref_f32 = (np.asarray(zamba_bf16[k], np.float64) for k in ("ref_bf16", "ref_f32"))
+    scale = np.abs(ref_f32).max()
+    own = np.abs(ref_bf16 - ref_f32).max() / scale
+    assert own > 0  # the reference's bf16 route rounds
+    assert np.abs(got - ref_f32).max() / scale <= 1.5 * own
+    assert np.isfinite(loss)
+    top2 = np.sort(ref_bf16, -1)[..., -2:]
+    sure = top2[..., 1] - top2[..., 0] > 2 * np.abs(got - ref_bf16).max()
+    assert sure.any()
+    assert np.array_equal(got.argmax(-1)[sure], ref_bf16.argmax(-1)[sure])
 
 
 @pytest.fixture(scope="module")

@@ -146,7 +146,8 @@ def _gram_ring(U, V, nb, tile=128, lanes=32):
 
 def _stream_blocks(m, unroll=4, sms=132, resident=132 * 6, threads=256):
     """The grid of ``csrc/cg_fused.cu``'s ``stream_blocks`` for m vectors (on
-    an H100: 132 SMs, 6 blocks of 256 threads an SM at 40 registers)."""
+    an H100: 132 SMs, 6 blocks of 256 threads an SM at 40 registers, 5 at 48
+    as ``dot2_single`` has, which caps no grid of ``dot2`` at n ≤ 1,722,293)."""
     per_thread = -(-m // (threads * unroll))
     busy = -(-m // threads)
     b = per_thread if per_thread > sms else min(busy, sms)
@@ -167,6 +168,20 @@ def _block_tree(v, threads=256):
     return warp_tree(torch.cat([warps, pad], -1))
 
 
+def _grid_sum(lanes, nb, threads=256):
+    """One dot's (G, 4) f32 lane chains summed as the one-launch kernels sum
+    them: (l0 + l1) + (l2 + l3) per thread, ``_block_tree`` per block, then
+    the last block's thread i adds slots i, i + threads, ... in order, and
+    ``_block_tree``."""
+    per_thread = (lanes[:, 0] + lanes[:, 1]) + (lanes[:, 2] + lanes[:, 3])
+    part = _block_tree(per_thread.reshape(nb, threads), threads)
+    slots = torch.zeros(threads, dtype=torch.float32)
+    for i in range(0, nb, threads):
+        chunk = part[i:i + threads]
+        slots[:chunk.shape[0]] = slots[:chunk.shape[0]] + chunk
+    return _block_tree(slots, threads)
+
+
 def _dot2_single(u, v, nb, off_u=0, off_v=0, threads=256, unroll=4):
     """(<u,v>, <v,v>) summed in the order of the kernel (``csrc/cg_fused.cu``
     ``dot2_single``) with nb blocks, for u and v at element offsets off_u and
@@ -175,9 +190,8 @@ def _dot2_single(u, v, nb, off_u=0, off_v=0, threads=256, unroll=4):
     vectors, else the body starts at element 0 (four 4-byte loads a vector,
     the same order). Thread t of the G = nb * threads takes vectors t, t + G,
     ... (``unroll`` a step) into one f32 fma chain per lane, then head
-    element t and tail element t into lane 0, and adds (l0 + l1) + (l2 + l3);
-    each block adds its threads by ``_block_tree``; the last block's thread i
-    adds slots i, i + threads, ... in order, then ``_block_tree``."""
+    element t and tail element t into lane 0; ``_grid_sum`` adds the
+    lanes."""
     n = u.shape[0]
     h = min((4 - off_u % 4) % 4, n) if off_u % 4 == off_v % 4 else 0
     m, r = (n - h) // 4, (n - h) % 4
@@ -198,13 +212,7 @@ def _dot2_single(u, v, nb, off_u=0, off_v=0, threads=256, unroll=4):
                 t = torch.tensor(idx)
                 lane = acc[:len(idx), 0].double() + a[t].double() * b[t].double()
                 acc[:len(idx), 0] = lane.float()
-        per_thread = (acc[:, 0] + acc[:, 1]) + (acc[:, 2] + acc[:, 3])
-        part = _block_tree(per_thread.reshape(nb, threads), threads)
-        slots = torch.zeros(threads, dtype=torch.float32)
-        for i in range(0, nb, threads):
-            chunk = part[i:i + threads]
-            slots[:chunk.shape[0]] = slots[:chunk.shape[0]] + chunk
-        sums.append(_block_tree(slots, threads))
+        sums.append(_grid_sum(acc, nb, threads))
     return sums
 
 
@@ -239,6 +247,117 @@ def test_dot2_single_order_matches_float64_and_pallas_interpret(n, offsets, grid
         assert g.dtype == torch.float32
         assert abs(float(g) - float(np.sum(terms))) <= 1e-6 * scale
         assert abs(float(g) - w) <= 1e-5 * scale
+
+
+def _residual_dots_single(s, As, r0s, gamma, nb, offs=(0, 0, 0), threads=256, unroll=2):
+    """(r, <r,r0s>, <r,r>) in the order of the kernel (``csrc/cg_fused.cu``
+    ``residual_dots_single``) with nb blocks, for s, As and r0s at element
+    offsets ``offs`` from 16-byte boundaries; ``r0s=None`` is the aliased
+    form (r0s is s itself: the loaded s stands in for it, at s's offset).
+    r is s − γ·As rounded once to f32 (the fma the kernel compiles to). Where
+    the three offsets agree mod 4, the head of h elements up to the first
+    boundary is peeled and the body read as 16-byte vectors, else the body
+    starts at element 0 (four 4-byte loads a vector, the same order). Thread
+    t of the G = nb * threads takes vectors t, t + G, ... (``unroll`` a step)
+    into one f32 fma chain per lane for each dot, then head element t and
+    tail element t into lane 0; ``_grid_sum`` adds the lanes."""
+    n = s.shape[0]
+    off_s, off_a, off_w = offs if r0s is not None else (offs[0], offs[1], offs[0])
+    w = s if r0s is None else r0s
+    h = min((4 - off_s % 4) % 4, n) if off_s % 4 == off_a % 4 == off_w % 4 else 0
+    m, tail = (n - h) // 4, (n - h) % 4
+    G = nb * threads
+    r = (s.double() - float(gamma) * As.double()).float()
+    acc = [torch.zeros(G, 4, dtype=torch.float32) for _ in range(2)]
+    steps = -(-m // (G * unroll))
+    if steps:
+        pad = steps * G * unroll * 4 - 4 * m
+        rb, wb = (torch.nn.functional.pad(v[h:h + 4 * m], (0, pad)).double()
+                  .reshape(steps, unroll, G, 4) for v in (r, w))
+        for i in range(steps):
+            for k in range(unroll):
+                acc[0] = (acc[0].double() + rb[i, k] * wb[i, k]).float()
+                acc[1] = (acc[1].double() + rb[i, k] * rb[i, k]).float()
+    for idx in [list(range(h)), [h + 4 * m + t for t in range(tail)]]:
+        if idx:
+            t = torch.tensor(idx)
+            for a, v in zip(acc, (w, r)):
+                a[:len(idx), 0] = (a[:len(idx), 0].double()
+                                   + r[t].double() * v[t].double()).float()
+    return r, _grid_sum(acc[0], nb, threads), _grid_sum(acc[1], nb, threads)
+
+
+def _residual_blocks(n, offs, grid):
+    """The grid of ``residual_dots_single``: ``stream_blocks`` at two
+    vectors a thread an iteration, on an H100 (one resident wave of the
+    general form's instance: 6 blocks an SM at 40 registers or fewer with
+    the 16-byte body, 5 at 48 with the 4-byte body), or 132 x 8 blocks."""
+    if grid != "h100":
+        return 132 * 8
+    vec = offs[0] % 4 == offs[1] % 4 == offs[2] % 4
+    h = min((4 - offs[0] % 4) % 4, n) if vec else 0
+    return _stream_blocks((n - h) // 4, unroll=2, resident=132 * (6 if vec else 5))
+
+
+@functools.lru_cache(maxsize=None)
+def _residual_case(n):
+    """Seeded f32 s, As and r0s of length n, and the reference's Pallas
+    ``residual_dots`` on them in interpret mode (r0s read, and r0s = s)."""
+    rng = np.random.default_rng(n + 13)
+    s, As, w = (rng.standard_normal(n).astype(np.float32) for _ in range(3))
+    want = {}
+    for key, r0s in (("read", w), ("alias", s)):
+        r, d1, d2 = jops.bicgstab_residual_dots(jnp.asarray(s), jnp.asarray(As),
+                                                jnp.asarray(r0s), GAMMA, interpret=True)
+        want[key] = np.asarray(r), float(d1), float(d2)
+    return s, As, w, want
+
+
+@pytest.mark.parametrize("grid", ["h100", "132x8"])
+@pytest.mark.parametrize("offsets", [(0, 0, 0), (1, 1, 1), (1, 2, 0)],
+                         ids=["aligned", "all-1", "1-2-0"])
+@pytest.mark.parametrize("n", [1, 5, 65_537, 1_722_293])
+def test_residual_dots_single_order_matches_float64_and_pallas_interpret(n, offsets, grid):
+    """The order of summation of the one-launch ``residual_dots`` kernel,
+    emulated in torch at the grid ``stream_blocks`` picks on an H100 and at
+    132 x 8 blocks: both dots against float64 sums of the same rounded r
+    (1e-6 of Σ|terms|) and against ``repro.kernels.ops.bicgstab_residual_dots``
+    in interpret mode (1e-5 of Σ|terms|), r within 1e-5 of |s| + |γ·As|. At
+    offsets (1, 1, 1) the head of 3 elements is peeled; at (1, 2, 0) the body
+    starts at element 0."""
+    s, As, w, want = _residual_case(n)
+    nb = _residual_blocks(n, offsets, grid)
+    r, d1, d2 = _residual_dots_single(*(torch.from_numpy(a) for a in (s, As, w)), GAMMA, nb,
+                                      offsets)
+    wr, w1, w2 = want["read"]
+    _close_vec(r.numpy(), wr, [s, GAMMA * As])
+    r64 = r.double().numpy()
+    for g, e, terms in zip((d1, d2), (w1, w2), (r64 * w, r64 * r64)):
+        scale = float(np.sum(np.abs(terms)))
+        assert g.dtype == torch.float32
+        assert abs(float(g) - float(np.sum(terms))) <= 1e-6 * scale
+        assert abs(float(g) - e) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("offsets", [(0, 0, 0), (1, 1, 1), (1, 2, 0)],
+                         ids=["aligned", "all-1", "1-2-0"])
+@pytest.mark.parametrize("n", [5, 65_537, 1_722_293])
+def test_residual_dots_single_aliased_form_is_the_general_form_on_a_copy(n, offsets):
+    """r0s = s (the CG call; the kernel's aliased form, which never reads
+    r0s) gives the same bits as r0s = a copy of s at s's offset, and holds
+    the reference's Pallas kernel on r0s = s within 1e-5 of Σ|terms|."""
+    s, As, _, want = _residual_case(n)
+    ts, tA = torch.from_numpy(s), torch.from_numpy(As)
+    copy_offs = (offsets[0], offsets[1], offsets[0])
+    nb = _residual_blocks(n, copy_offs, "h100")
+    alias = _residual_dots_single(ts, tA, None, GAMMA, nb, offsets)
+    general = _residual_dots_single(ts, tA, ts.clone(), GAMMA, nb, copy_offs)
+    assert all(torch.equal(a, b) for a, b in zip(alias, general))
+    wr, w1, w2 = want["alias"]
+    _close_vec(alias[0].numpy(), wr, [s, GAMMA * As])
+    r64 = alias[0].double().numpy()
+    for g, e, terms in zip(alias[1:], (w1, w2), (r64 * s, r64 * r64)):
+        assert abs(float(g) - e) <= 1e-5 * float(np.sum(np.abs(terms)))
 
 
 def _tf32(x):

@@ -198,7 +198,7 @@ def test_paged_decode_matches_reference_and_dense(window, flash):
     jc = jc._replace(k_pool=jnp.asarray(c.k_pool.numpy()), v_pool=jnp.asarray(c.v_pool.numpy()))
     dense = []
     for b in range(B):
-        d = att.init_kv_cache(cfg, 1, max_len, torch.float32)
+        d = att.init_kv_cache(cfg, 1, max_len, torch.float32, device="cpu")
         keep = min(int(lens[b]), d.window)
         pos = torch.arange(int(lens[b]) - keep, int(lens[b]))
         d.k[:, pos % d.window] = kpre[b:b + 1, pos]

@@ -24,8 +24,9 @@ from repro.models import build_model as j_build_model  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.core.curvature import MODES, make_gnvp_op, make_hvp_op  # noqa: E402
 from repro_torch.data.synthetic import lm_batch  # noqa: E402
-from repro_torch.interop import batch_from_numpy, params_from_numpy  # noqa: E402
-from repro_torch.models import attention, layers  # noqa: E402
+from repro_torch.interop import (batch_from_numpy, params_from_numpy,  # noqa: E402
+                                 params_to_numpy)
+from repro_torch.models import attention, layers, ssm  # noqa: E402
 from repro_torch.models.transformer import build_model  # noqa: E402
 
 ARCHS = ("qwen1.5-0.5b", "qwen2-1.5b", "granite-3-8b", "chatglm3-6b")
@@ -192,7 +193,7 @@ def test_explicit_mask_and_cross_attention_route_to_the_kernels(tiny):
     pos = torch.arange(20)
     # random holes in the causal mask; the diagonal stays, so no row is empty
     # (there _sdpa averages V and the kernels give 0, in the reference too)
-    mask = attention.causal_mask(20) & (torch.tensor(
+    mask = attention.causal_mask(20, device="cpu") & (torch.tensor(
         np.random.default_rng(2).random((2, 1, 20, 20)) > 0.3) | torch.eye(20, dtype=torch.bool))
     want = attention.attend_full(p, x, pos, cfg, mask=mask)
     got = attention.attend_full(p, x, pos, cfg.replace(use_flash_attention=True), mask=mask)
@@ -222,6 +223,83 @@ def test_lm_batch_follows_the_reference_process():
     assert torch.equal(b["loss_mask"], torch.ones(4, 33))
     again = lm_batch(torch.Generator().manual_seed(3), cfg, 4, 33, device="cpu")
     assert all(torch.equal(b[k], again[k]) for k in b)
+
+
+def _hold_bf16_logits(logits, loss, ref_bf16, ref_f32):
+    """The gate of the bf16 routes (the rule of the full-width bf16 checks in
+    ``chip_smoke.py``), set before the run:
+    the port's bf16 logits lie no farther from the reference's f32 logits
+    (the same bf16 weights widened to f32) than 1.5x the reference's own
+    bf16 logits do, in max|·| over max|f32 logit|; the loss is finite; and
+    the argmax equals the reference's bf16 argmax at every position where
+    the reference's top-two margin exceeds twice the largest absolute
+    difference between the two sides' bf16 logits (at least one such
+    position)."""
+    got = logits.detach().double().numpy()
+    ref_bf16, ref_f32 = (np.asarray(a, np.float64) for a in (ref_bf16, ref_f32))
+    scale = np.abs(ref_f32).max()
+    own = np.abs(ref_bf16 - ref_f32).max() / scale
+    assert own > 0  # the reference's bf16 route rounds
+    assert np.abs(got - ref_f32).max() / scale <= 1.5 * own
+    assert np.isfinite(float(loss))
+    top2 = np.sort(ref_bf16, -1)[..., -2:]
+    sure = top2[..., 1] - top2[..., 0] > 2 * np.abs(got - ref_bf16).max()
+    assert sure.any()
+    assert np.array_equal(got.argmax(-1)[sure], ref_bf16.argmax(-1)[sure])
+
+
+@pytest.fixture(scope="module")
+def tiny_bf16():
+    """The reference's _tiny model in bf16 (its own init), its bf16 logits
+    on a (2, 32) batch and, on the same weights widened to f32, its f32
+    logits; the port's copies of weights and batch."""
+    jcfg = _tiny(jconfigs, dtype="bfloat16")
+    jm = j_build_model(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    jb = j_lm_batch(jax.random.PRNGKey(1), jcfg, 2, 32)
+    jp32 = jax.tree_util.tree_map(lambda x: x.astype(jnp.float32), jp)
+    return dict(jp=jp, cfg=_tiny(configs, dtype="bfloat16"),
+                tp=params_from_numpy(_np(jp), "cpu"),
+                tb=batch_from_numpy({k: np.asarray(v) for k, v in jb.items()}, "cpu"),
+                ref_bf16=np.asarray(jm.logits_fn(jp, jb), np.float32),
+                ref_f32=np.asarray(j_build_model(_tiny(jconfigs)).logits_fn(jp32, jb)))
+
+
+@pytest.mark.parametrize("flash", [False, True], ids=["sdpa", "flash"])
+def test_bf16_logits_hold_the_reference_within_its_own_bf16_distance(tiny_bf16, flash):
+    """The tiny Qwen2 config in bf16 on both sides: the weights cross
+    ``interop`` bit for bit, and the port's logits through plain attention
+    and through the flash kernels' plain versions hold ``_hold_bf16_logits``."""
+    leaves = lambda tree: [np.asarray(x) for x in jax.tree_util.tree_leaves(tree)]
+    for got, want in zip(leaves(params_to_numpy(tiny_bf16["tp"])), leaves(tiny_bf16["jp"])):
+        assert got.dtype == want.dtype
+        assert np.array_equal(got.view(np.uint8), want.view(np.uint8))
+    m = build_model(tiny_bf16["cfg"].replace(use_flash_attention=flash), device="cpu")
+    with torch.no_grad():
+        logits = m.logits_fn(tiny_bf16["tp"], tiny_bf16["tb"])
+        loss = m.loss_fn(tiny_bf16["tp"], tiny_bf16["tb"])
+    _hold_bf16_logits(logits, loss, tiny_bf16["ref_bf16"], tiny_bf16["ref_f32"])
+
+
+@pytest.mark.parametrize("ctor", ["causal_mask", "init_kv_cache", "init_mamba_cache",
+                                  "norm_init", "rope_freqs"])
+def test_public_constructors_default_to_the_card(ctor, monkeypatch):
+    """Without a device the five public constructors ask for the card and
+    raise where there is none (no fall back to the CPU); with
+    ``device="cpu"`` every tensor they make lies on the CPU."""
+    cfg = configs.get_smoke_config("zamba2-7b")
+    call = {
+        "causal_mask": lambda **kw: attention.causal_mask(8, window=4, **kw),
+        "init_kv_cache": lambda **kw: attention.init_kv_cache(cfg, 2, 16, torch.float32, **kw),
+        "init_mamba_cache": lambda **kw: ssm.init_mamba_cache(cfg, 2, torch.float32, **kw),
+        "norm_init": lambda **kw: layers.norm_init(8, torch.float32, "layernorm", **kw),
+        "rope_freqs": lambda **kw: layers.rope_freqs(32, 0.5, 1e4, **kw),
+    }[ctor]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
+    made = [t for t in tree_leaves(call(device="cpu")) if isinstance(t, torch.Tensor)]
+    assert made and all(t.device.type == "cpu" for t in made)
 
 
 def test_serving_entry_points_raise_naming_their_slice(tiny):
