@@ -69,6 +69,29 @@ Phases, each printed on lines of its own; any failure exits non-zero:
              standard gn_cg step at 16 Krylov iterations, each with its wall,
              busy share, top kernels and host reads (synchronizing calls
              counted with ``torch.cuda.set_sync_debug_mode``).
+6b. data parallel — the data-parallel HF step (``core.distributed``) over
+             gloo, its ranks sharing the one card: ``repro_torch.launch.fig5``
+             runs the TIMIT MLP at full width, global batch 4096, the whole
+             shard as curvature batch, flat backend, K = 8, cg_tol 0, λ₀ 1,
+             combos cg_s1, bicgstab_s1 and cg_s2_overlap, 2 steps each, at 1
+             and 2 ranks. Gates: per-tag executed collectives equal on both
+             ranks and at 1 and 2 ranks on step 1; ``blocking_syncs`` equal to
+             ``core.comm_model``'s formula at the executed K and E on every
+             step; the loss reduced 1 + E times a step; step 1's loss at 2
+             ranks within 1e-4·max(1, |loss|) of 1 rank; each rank's
+             launches of dot2, x_update, residual_dots and dots_block
+             non-zero, equal on both ranks and, on step 1, equal to 1 rank's.
+             Printed: step walls, host seconds inside ``preduce`` a step, bytes
+             an all-reduce, the host's wait on the hidden gradient reduce.
+             Then ``launch.train --num-processes 2`` (Qwen1.5-0.5B smoke,
+             flash attention, gn_cg, flat, 2 steps: two step lines from the
+             primary, flash launches on each rank) and
+             ``sharded_decode_attend`` on 2 ranks at Qwen2-1.5B's attention
+             (12 heads over 2, hd 128, B 16, W 1024 split 512/512; a full
+             cache and one whose second half is empty) in f32 and bf16
+             against the unsharded ``flash_decode`` route: ≤ 1e-5 (f32) and
+             ≤ 1e-2 (bf16) of max|y|. NCCL is not tried: it takes a card a
+             rank.
 7. transformer — the transformer main path through
              ``repro_torch.launch.train.train``: Qwen1.5-0.5B at full width
              and depth (464,118,784 parameters, bf16, random weights from
@@ -376,24 +399,20 @@ def bound_ms(n_bytes, n_flops, flops_per_s=F32_FLOPS_PER_S):
 
 def sstep_krylov_syncs(K, s, solver, basis, overlap):
     """(schedule, ceiling) of the Gram reductions of an s-step solve of K
-    iterations. The schedule is the bootstrap cycles of the adaptive bases,
-    then one Gram per full cycle of s (2s under overlap): a copy of
-    ``benchmarks/comm_model.py``'s ``hf_sstep_syncs_per_iteration`` less its
-    gradient and line-search terms (the port imports nothing of the
-    benchmarks). The depth-resolved prefix guard of the adaptive and
-    overlapped cycles may run shorter cycles, each of at least one
-    iteration, so their count lies between the schedule and the ceiling of
-    one Gram per iteration after the bootstraps (the invariant of the
-    reference's ``benchmarks/sstep_bench.py``). Monomial cycles without
+    iterations. The schedule is ``repro_torch.core.comm_model``'s blocking
+    syncs at K and no line-search trial, less the gradient reduce where it
+    blocks: the bootstrap cycles of the adaptive bases, then one Gram per
+    full cycle of s (2s under overlap). The depth-resolved prefix guard of
+    the adaptive and overlapped cycles may run shorter cycles, each of at
+    least one iteration, so their count lies between the schedule and the
+    ceiling of one Gram per iteration after the bootstraps (the invariant of
+    the reference's ``benchmarks/sstep_bench.py``). Monomial cycles without
     overlap run whole or break down: their count is the schedule."""
-    s_eff = 2 * s if overlap else s
-    if basis == "monomial":
-        n_boot, covered = 0, 0
-    else:
-        s_boot = max(1, min(s_eff, 2 if solver == "bicgstab" else 4))
-        n_boot = -(-s_eff // s_boot) + (1 if solver == "bicgstab" else 0)
-        covered = n_boot * s_boot
-    schedule = n_boot + math.ceil(max(K - covered, 0) / s_eff)
+    from repro_torch.core import comm_model
+
+    schedule = comm_model.hf_sstep_syncs_per_iteration(
+        K, 0, s, solver=solver, basis=basis, overlap=overlap) - (0 if overlap else 1)
+    n_boot, covered = comm_model.sstep_bootstrap(2 * s if overlap else s, solver, basis)
     whole = basis == "monomial" and not overlap
     return schedule, schedule if whole else n_boot + max(K - covered, 0)
 
@@ -2146,6 +2165,235 @@ def phase_hybrid_check(torch, params, prompts):
              f"hf_step {worst}")
 
 
+# ------------------------------------------------------ data parallel --
+# The fig5 combos of the data-parallel phase and their initial damping. The
+# standard solves run at the series' λ₀ 1. The overlapped s-step combo runs
+# at SSTEP_LAM, where its solve carries signal; at λ₀ 1 (and 0.1) its
+# residual reaches f32 round-off within K = 8 and the prefix guard's
+# verdicts, so its cycle count, follow round-off (at full width on the
+# card: 4 Gram reductions at 1 rank, 5 at 2, on the first step).
+DP_RUNS = (("cg_s1", 1.0), ("bicgstab_s1", 1.0), ("cg_s2_overlap", SSTEP_LAM))
+DP_KERNELS = ("dot2", "x_update", "residual_dots", "dots_block")
+DP_DECODE_CASES = (("full", 1100), ("half-empty", 300))   # (name, positions before t)
+DP_DECODE_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def _dp_env():
+    import os
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(root / "src"), str(root)] + (
+        [env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    return env
+
+
+def _dp_records(out, n):
+    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(n)]
+
+
+def dp_decode_worker(out_dir):
+    """One rank of the sharded-decode check (``--dp-worker decode``): writes
+    ``decode.rank<r>.json``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import multiproc
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.models.attention import KVCache, attn_init, decode_attend
+    from repro_torch.models.decode_sharded import sharded_decode_attend
+
+    torch.set_float32_matmul_precision("highest")
+    dev = multiproc.initialize_from_env("cuda")
+    mesh = make_data_mesh("model")
+    cfg = get_config("qwen2-1.5b")
+    B, W, KV, hd = 16, 1024, cfg.n_kv_heads, cfg.resolved_head_dim
+    Wl = W // mesh.size
+    own = slice(mesh.rank * Wl, (mesh.rank + 1) * Wl)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        p = attn_init(gen, cfg, dtype)
+        for name, npos in DP_DECODE_CASES:
+            fill = min(npos, W)
+            ppos = torch.arange(npos - fill, npos, device=dev)
+            full = KVCache(torch.zeros(B, W, KV, hd, dtype=dtype, device=dev),
+                           torch.zeros(B, W, KV, hd, dtype=dtype, device=dev),
+                           torch.full((W,), -1, dtype=torch.int32, device=dev))
+            full.k[:, ppos % W] = torch.randn(B, fill, KV, hd, generator=gen, device=dev).to(dtype)
+            full.v[:, ppos % W] = torch.randn(B, fill, KV, hd, generator=gen, device=dev).to(dtype)
+            full.pos[ppos % W] = ppos.to(torch.int32)
+            x = torch.randn(B, 1, cfg.d_model, generator=gen, device=dev).to(dtype)
+            shard = KVCache(*(c[:, own].clone() for c in full[:2]), full.pos[own].clone())
+            y_full, _ = decode_attend(p, x, npos, KVCache(*(c.clone() for c in full)),
+                                      cfg.replace(use_flash_attention=True))
+            before = ops.LAUNCHES["flash_decode"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y_sh, shard = sharded_decode_attend(p, x, npos, shard, cfg, mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            err = float((y_sh.float() - y_full.float()).abs().max()
+                        / y_full.float().abs().max())
+            live = int((shard.pos >= 0).sum())
+            rows.append(dict(case=name, dtype=str(dtype).split(".")[1], rank=mesh.rank,
+                             rel_err=err, live_slots=live, wall_ms=wall * 1e3,
+                             launches=ops.LAUNCHES["flash_decode"] - before,
+                             finite=bool(torch.isfinite(y_sh.float()).all())))
+    Path(out_dir, f"decode.rank{mesh.rank}.json").write_text(json.dumps(rows))
+    torch.distributed.destroy_process_group()
+
+
+def _dp_fig5(multiproc, tmp, env):
+    """The TIMIT combos at 1 and 2 ranks; returns {n: [rank records]}, each
+    a list of ``DP_RUNS``' records. A first pass over the combos, not
+    recorded, takes each process's first CUDA calls (about 10 s of library
+    start-up in the first step, a few hundred ms in the first s-step one)."""
+    from repro_torch.configs.paper_mlp import TIMIT_FIG5
+
+    runs = ",".join(f"{name}:flat:{lam}:0" for name, lam in DP_RUNS + DP_RUNS)
+    recs = {}
+    for n in (1, 2):
+        t0 = time.perf_counter()
+        multiproc.spawn(n, "repro_torch.launch.fig5", [
+            "--runs", runs, "--dims", ",".join(map(str, TIMIT_FIG5)), "--batch", "4096",
+            "--device", "cuda", "--out", str(tmp / f"n{n}")],
+            env=env, timeout_s=300)
+        recs[n] = [rank[len(DP_RUNS):] for rank in _dp_records(tmp / f"n{n}", n)]
+        print(f"[dp] fig5 combos at {n} rank(s): {time.perf_counter() - t0:.1f} s with the "
+              f"processes' start", flush=True)
+    return recs
+
+
+def _dp_check_syncs(name, rec, st, comm_model):
+    """``blocking_syncs`` against the sync model at the executed K and E: the
+    formula itself for a standard solve; for an s-step solve its Gram
+    reductions between the schedule and the ceiling of ``sstep_krylov_syncs``
+    (the prefix guard may shorten cycles, as phase 4 allows) and the step's
+    blocking syncs built from them as ``hf_step`` builds them."""
+    K, E, ks = int(st["cg_iters"]), int(st["ls_evals"]), int(st["krylov_syncs"])
+    family = "bicgstab" if rec["solver"] == "bicgstab" else "cg"
+    want = comm_model.hf_sstep_syncs_per_iteration(
+        K, E, rec["s"], solver=family, basis=rec["basis"], overlap=rec["overlap"])
+    if rec["s"] == 1:
+        ok = int(st["blocking_syncs"]) == want
+    else:
+        lo, hi = sstep_krylov_syncs(K, rec["s"], family, rec["basis"], rec["overlap"])
+        built = ks + (E + 1) // 2 if rec["overlap"] else 1 + ks + E
+        ok = lo <= ks <= hi and int(st["blocking_syncs"]) == built
+    if not ok:
+        fail(f"dp {name} rank {rec['rank']} of {rec['n_processes']}: blocking_syncs "
+             f"{st['blocking_syncs']} (krylov_syncs {ks}) against the sync model {want} at "
+             f"K={K}, E={E}")
+    if st["executed"].get("loss") != 1 + E:
+        fail(f"dp {name}: the loss reduced {st['executed'].get('loss')} times, not 1 + E")
+    if not (math.isfinite(st["loss"]) and math.isfinite(st["loss_new"])):
+        fail(f"dp {name}: non-finite loss {st['loss']} -> {st['loss_new']}")
+
+
+def _dp_gates(comm_model, recs):
+    """The phase's gates on the fig5 records; returns each rank's launches."""
+    totals = {r: dict.fromkeys(DP_KERNELS, 0) for r in range(2)}
+    for i, (name, lam) in enumerate(DP_RUNS):
+        one, ranks = recs[1][0][i], [recs[2][r][i] for r in range(2)]
+        for rec in (one, *ranks):
+            walls = [st["wall_s"] * 1e3 for st in rec["steps"]]
+            print(f"[dp] {name} λ0={lam} rank {rec['rank']} of {rec['n_processes']}: step "
+                  f"walls {[round(w, 1) for w in walls]} ms (median "
+                  f"{statistics.median(walls):.1f}), preduce host "
+                  f"{[round(st['preduce_s'] * 1e3, 2) for st in rec['steps']]} ms a step, "
+                  f"hidden-reduce wait "
+                  f"{[round(st['grad_wait_s'] * 1e3, 3) for st in rec['steps']]} ms, "
+                  f"bytes an all-reduce {rec['bytes_per_reduce']}, collectives "
+                  f"{rec['collectives']}, counted {rec['executed']}, cg_iters "
+                  f"{[int(st['cg_iters']) for st in rec['steps']]}, ls_evals "
+                  f"{[int(st['ls_evals']) for st in rec['steps']]}, krylov/blocking syncs "
+                  f"{[(int(st['krylov_syncs']), int(st['blocking_syncs'])) for st in rec['steps']]}"
+                  f", loss {[(st['loss'], st['loss_new']) for st in rec['steps']]}, launches "
+                  f"{[st['launches'] for st in rec['steps']]}", flush=True)
+            for st in rec["steps"]:
+                _dp_check_syncs(name, rec, st, comm_model)
+        a, b = ranks
+        for sa, sb in zip(a["steps"], b["steps"]):
+            if sa["executed"] != sb["executed"] or sa["launches"] != sb["launches"]:
+                fail(f"dp {name}: the ranks differ: {sa['executed']} {sa['launches']} vs "
+                     f"{sb['executed']} {sb['launches']}")
+        same = (a["steps"][0]["executed"] == one["steps"][0]["executed"]
+                and a["steps"][0]["launches"] == one["steps"][0]["launches"])
+        print(f"[dp] {name}: step 1 at 2 ranks {a['steps'][0]['executed']} "
+              f"{a['steps'][0]['launches']}, at 1 rank {one['steps'][0]['executed']} "
+              f"{one['steps'][0]['launches']}", flush=True)
+        if one["s"] == 1 and not same:
+            fail(f"dp {name}: step 1's collectives or launches differ between 1 and 2 ranks")
+        f1, f2 = one["steps"][0]["loss_new"], a["steps"][0]["loss_new"]
+        print(f"[dp] {name}: step 1 loss_new 1 rank {f1!r}, 2 ranks {f2!r}, |diff| "
+              f"{abs(f1 - f2):.3e} (limit {1e-4 * max(1.0, abs(f1)):.3e})", flush=True)
+        if not abs(f1 - f2) <= 1e-4 * max(1.0, abs(f1)):
+            fail(f"dp {name}: step 1 loss_new {f2} at 2 ranks vs {f1} at 1 rank")
+        for r, rec in enumerate(ranks):
+            for st in rec["steps"]:
+                for k in DP_KERNELS:
+                    totals[r][k] += st["launches"].get(k, 0)
+    for r, tot in totals.items():
+        if not all(tot[k] > 0 for k in DP_KERNELS):
+            fail(f"dp: rank {r} launched {tot}: a Krylov kernel never ran")
+    print(f"[dp] launches per rank over the combos: {totals}", flush=True)
+    return totals
+
+
+def _dp_cli(tmp, env):
+    hist = tmp / "cli.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "qwen1.5-0.5b",
+           "--smoke", "--num-processes", "2", "--flash-attention", "--solver", "gn_cg",
+           "--krylov-backend", "flat", "--steps", "2", "--history-out", str(hist)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env)
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("step")]
+    print(f"[dp] train --num-processes 2: exit {res.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s; primary: {lines}", flush=True)
+    if res.returncode != 0 or len(lines) != 2:
+        fail(f"train --num-processes 2: exit {res.returncode}, step lines {lines}\n"
+             f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    ranks = [json.loads(hist.read_text()), json.loads(Path(f"{hist}.rank1").read_text())]
+    flash = [{k: sum(h["launches"][k] for h in rank) for k in FLASH_NAMES} for rank in ranks]
+    print(f"[dp] train --num-processes 2: flash launches per rank {flash}, step walls "
+          f"{[[round(h['wall_s'] * 1e3, 1) for h in rank] for rank in ranks]} ms", flush=True)
+    if flash[0] != flash[1] or not all(n > 0 for n in flash[0].values()):
+        fail(f"train --num-processes 2: flash launches per rank {flash}")
+
+
+def _dp_decode(multiproc, tmp, env):
+    multiproc.spawn(2, "chip_smoke", ["--dp-worker", "decode", str(tmp)], env=env,
+                    timeout_s=300)
+    for r in range(2):
+        for row in json.loads((tmp / f"decode.rank{r}.json").read_text()):
+            tol = DP_DECODE_TOL[row["dtype"]]
+            print(f"[dp] sharded decode {json.dumps(row)} (limit {tol})", flush=True)
+            if not (row["finite"] and row["rel_err"] <= tol and row["launches"] == 1):
+                fail(f"sharded decode on rank {r}: {row}")
+            if row["case"] == "half-empty" and r == 1 and row["live_slots"] != 0:
+                fail(f"sharded decode: rank 1 holds {row['live_slots']} live slots, not 0")
+
+
+def phase_data_parallel(torch):
+    """The data-parallel path on 2 gloo ranks sharing the card (phase 6b)."""
+    import tempfile
+
+    from repro_torch.core import comm_model
+    from repro_torch.launch import multiproc
+
+    t0 = time.perf_counter()
+    env = _dp_env()
+    with tempfile.TemporaryDirectory() as td:
+        tmp = Path(td)
+        recs = _dp_fig5(multiproc, tmp, env)
+        _dp_gates(comm_model, recs)
+        _dp_cli(tmp, env)
+        _dp_decode(multiproc, tmp, env)
+    print(f"[dp] phase wall {time.perf_counter() - t0:.1f} s ({card_line()})", flush=True)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -2179,6 +2427,7 @@ def main() -> None:
     phase_checks(torch, model, params, state, batch, hvp_batch)
     phase_profile(torch, model, params, state, batch, hvp_batch)
     phase_profile_sstep(torch, model, batch, hvp_batch)
+    phase_data_parallel(torch)
     del model, params, state, batch, hvp_batch
     qparams, qstate, t_launches = phase_transformer(torch, ops)
     launches.update({name: t_launches[name] for name in FLASH_NAMES})
@@ -2236,4 +2485,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-worker"]:
+        dp_decode_worker(sys.argv[3])
+    else:
+        main()

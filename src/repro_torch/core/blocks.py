@@ -24,7 +24,7 @@ import torch
 from torch.func import vmap
 from torch.utils._pytree import tree_leaves, tree_map
 
-from .curvature import _maybe_reduce, make_gnvp_op, make_hvp_op
+from .curvature import _block_reduce, _maybe_reduce, make_gnvp_op, make_hvp_op
 
 Op = Callable[[Any], Any]
 
@@ -79,7 +79,7 @@ def make_block_hvp_op(
     single = make_hvp_op(loss_fn, params, batch, mode=mode, chunk_size=chunk_size,
                          remat=remat, grad_reduce=None)
     blk = block_op_from_single(single)
-    return lambda tangents: _maybe_reduce(blk(tangents), grad_reduce)
+    return lambda tangents: _maybe_reduce(blk(tangents), _block_reduce(grad_reduce))
 
 
 def make_block_gnvp_op(
@@ -98,4 +98,4 @@ def make_block_gnvp_op(
     single = make_gnvp_op(model_out_fn, out_loss_fn, params, batch, mode=mode,
                           chunk_size=chunk_size, remat=remat, grad_reduce=None)
     blk = block_op_from_single(single)
-    return lambda tangents: _maybe_reduce(blk(tangents), grad_reduce)
+    return lambda tangents: _maybe_reduce(blk(tangents), _block_reduce(grad_reduce))

@@ -85,6 +85,13 @@ def _reduced(fn: Op, grad_reduce) -> Op:
     return lambda v: _maybe_reduce(fn(v), grad_reduce)
 
 
+def _block_reduce(grad_reduce):
+    """``grad_reduce`` for a block of stacked tangents: its ``block`` form
+    where it has one (the data-parallel step's, which counts the block's
+    tangents), else itself."""
+    return getattr(grad_reduce, "block", grad_reduce)
+
+
 def _batch_size(batch) -> int:
     sizes = {x.shape[0] for x in tree_leaves(batch)}
     if len(sizes) != 1:
@@ -201,7 +208,7 @@ def _chunked_product(direct, params, batch, chunk_size, grad_reduce) -> Op:
         for c, n_c in parts:
             acc = tree_map(lambda a, g: a + n_c * g.float(), acc, fn(vc, c))
         out = tree_map(lambda a, p: (a / B).to(p.dtype), acc, params)
-        return _maybe_reduce(out, grad_reduce)
+        return _maybe_reduce(out, _block_reduce(grad_reduce) if lead else grad_reduce)
 
     block_direct = vmap(direct, in_dims=(0, None))
     return _with_block(
@@ -232,7 +239,7 @@ def make_hvp_op(
         direct = lambda vc: _hvp_direct(loss_fn, params, vc, batch)
         return _with_block(
             _reduced(lambda v: direct(_cast_like(v, params)), grad_reduce),
-            _reduced(lambda V: vmap(direct)(_cast_like(V, params)), grad_reduce))
+            _reduced(lambda V: vmap(direct)(_cast_like(V, params)), _block_reduce(grad_reduce)))
 
     B = _batch_size(batch)
     if mode == "chunked" and remat and 0 < chunk_size < B:
@@ -271,7 +278,7 @@ def _lift_cached(inner: Op, params, grad_reduce) -> Op:
     product or block."""
     return _with_block(
         _reduced(lambda v: inner(_cast_like(v, params)), grad_reduce),
-        _reduced(lambda V: inner.block(_cast_like(V, params)), grad_reduce))
+        _reduced(lambda V: inner.block(_cast_like(V, params)), _block_reduce(grad_reduce)))
 
 
 def _gnvp_once(model_out_fn: OutFn, out_loss_fn: OutLossFn, params, batch) -> Op:
@@ -341,7 +348,7 @@ def make_gnvp_op(
         direct = lambda vc: in_call(vc, batch)
         return _with_block(
             _reduced(lambda v: direct(_cast_like(v, params)), grad_reduce),
-            _reduced(lambda V: vmap(direct)(_cast_like(V, params)), grad_reduce))
+            _reduced(lambda V: vmap(direct)(_cast_like(V, params)), _block_reduce(grad_reduce)))
 
     B = _batch_size(batch)
     if mode == "linearize" or chunk_size <= 0 or chunk_size >= B:

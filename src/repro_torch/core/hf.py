@@ -177,7 +177,11 @@ def hf_step(
     the curvature mini-batch (may be a slice of ``batch``; passing ``batch``
     itself shares one primal pass between g and the Hessian operator).
     ``model_out_fn``/``out_loss_fn`` are required by the GN solvers.
-    ``grad_reduce`` is applied to g and to every curvature product.
+    ``grad_reduce`` is applied to g and to every curvature product. Under
+    ``config.overlap`` its ``start(g)`` form, where it has one, starts the
+    gradient reduce before the operator build and the step waits on the
+    handle it returns (``handle.wait()`` gives the reduced g) at the Krylov
+    right-hand side.
     """
     dev = resolve_device(device)
     check_on(dev, tree_leaves((params, state, batch, hvp_batch)), "hf_step input")
@@ -199,6 +203,8 @@ def hf_step(
         and hvp_batch is batch
         and config.solver != "gn_cg"
     )
+    hidden = not shared and grad_reduce is not None and config.overlap
+    pending = None
     if shared:
         f0, g, exact = shared_primal_hvp(loss_fn, params, batch, grad_reduce=grad_reduce)
     else:
@@ -206,6 +212,11 @@ def hf_step(
         f0 = f0.detach()
         if grad_reduce is not None and not config.overlap:
             g = grad_reduce(g)
+        elif hidden and hasattr(grad_reduce, "start"):
+            # Overlapped schedule: the gradient reduce is in flight while the
+            # operator is built, which does not depend on it (the reference's
+            # hidden grad-reduce); it is waited on at the Krylov rhs.
+            pending = grad_reduce.start(g)
         if not use_gn:
             exact = make_hvp_op(loss_fn, params, hvp_batch, **curv_kw)
     if use_gn:
@@ -218,14 +229,13 @@ def hf_step(
             G = make_gnvp_op(model_out_fn, out_loss_fn, params, hvp_batch, **curv_kw)
     else:
         G = exact
-    if not shared and grad_reduce is not None and config.overlap:
-        # Overlapped schedule: the gradient reduce is issued after the
-        # operator build, which does not depend on it (the reference's
-        # hidden grad-reduce); its first consumer is the Krylov rhs.
-        g = grad_reduce(g)
-
     lam = state.lam
     A = make_damped(G, lam)
+    if pending is not None:
+        g = pending.wait()
+    elif hidden:
+        # A grad_reduce without a start form: issued after the build.
+        g = grad_reduce(g)
     b = tree_map(lambda x: -x.float(), g)
     x0 = tree_scale(config.cg_decay, state.prev_delta)
     if config.krylov_jitter > 0.0:

@@ -1,4 +1,4 @@
-"""Training entry point, single process (twin of ``repro/launch/train.py``).
+"""Training entry point (twin of ``repro/launch/train.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b --full \\
       --flash-attention --solver gn_cg --krylov-backend flat --steps 2
@@ -6,8 +6,14 @@
 Runs the HF optimizer (or a first-order baseline) on synthetic LM batches
 and prints the reference's per-step line. ``--smoke`` (the default) selects
 the reduced configuration, ``--full`` the published one. The run is on the
-card unless ``--device cpu`` is given. The flags of the parts not ported yet
-(multi-process, checkpoints, telemetry, supervised restarts) raise
+card unless ``--device cpu`` is given.
+
+``--num-processes N`` (N > 1) re-launches this command as N processes
+(``launch.multiproc.spawn``) that run the data-parallel HF step
+(``core.distributed``) over a gloo group: each takes its shard of every
+step's batch, and only the primary logs. With ``--history-out PATH`` rank 0
+writes PATH and rank r > 0 ``PATH.rank<r>``. The flags of the parts not
+ported yet (checkpoints, telemetry, supervised restarts) raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -15,21 +21,24 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 
 import torch
 
 from .._device import resolve_device
 from ..configs import ARCH_IDS, UNPORTED_ARCH_IDS, HFOptConfig, get_config, get_smoke_config
+from ..core.distributed import require_linearize
 from ..data.synthetic import lm_batch
 from ..kernels import ops
 from ..models.transformer import build_model
 from ..optim import make_optimizer
+from . import multiproc
+from .mesh import make_data_mesh
 
 # Flags of the reference whose parts are not ported yet: (type, default, what
 # and its ROADMAP item). Each raises when it asks for anything but the default.
 UNPORTED_FLAGS = {
-    "num_processes": (int, 1, "multi-process HF (ROADMAP items 9-11, slice 2)"),
     "ckpt_dir": (str, None, "checkpoints (ROADMAP item 21)"),
     "telemetry_dir": (str, None, "telemetry (ROADMAP item 22)"),
     "max_restarts": (int, 0, "supervised restarts (ROADMAP item 23)"),
@@ -60,6 +69,7 @@ def train(
     overlap: bool = False,
     nc_mode: str = "truncate",
     strict_descent: bool = False,
+    distributed: bool = False,
     device="cuda",
     params=None,
     state=None,
@@ -73,7 +83,12 @@ def train(
     solver shares one). Each history entry holds the step's metrics, its
     wall (taken after ``torch.cuda.synchronize()`` on the card), the kernel
     launches it made (``launches``; none on the CPU), and on the card the
-    peak device memory (``max_memory_allocated``)."""
+    peak device memory (``max_memory_allocated``).
+
+    ``distributed``: run the data-parallel step over the default process
+    group (``multiproc.initialize_from_env`` first): every rank makes the
+    same global batch and keeps its shard, the parameters and state are
+    rank 0's on every rank, and only the primary calls ``log_fn``."""
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if use_flash_attention:
@@ -88,12 +103,22 @@ def train(
         sstep_s=sstep, sstep_solver=sstep_solver, sstep_basis=sstep_basis,
         overlap=overlap, nc_mode=nc_mode, strict_descent=strict_descent,
     )
+    mesh = None
+    if distributed:
+        mesh = make_data_mesh()
+        if batch_size % mesh.size:
+            raise ValueError(f"batch_size {batch_size} not divisible by data-mesh size "
+                             f"{mesh.size}")
+        if not multiproc.is_primary():
+            log_fn = lambda *a, **k: None  # noqa: E731  (primary-only logging)
     opt = make_optimizer(opt_cfg, model.loss_fn, model_out_fn=model.logits_fn,
-                         out_loss_fn=model.out_loss_fn, device=dev)
+                         out_loss_fn=model.out_loss_fn, mesh=mesh, device=dev)
     if params is None:
         params = model.init(torch.Generator().manual_seed(0))
     if state is None:
         state = opt.init(params)
+    if mesh is not None:
+        params, state = multiproc.replicate((params, state), mesh)
     on_card = dev.type == "cuda"
 
     def sync():
@@ -104,6 +129,8 @@ def train(
     for i in range(start, steps):
         batch = lm_batch(torch.Generator().manual_seed(1000 + i), cfg, batch_size, seq_len,
                          device=dev)
+        if mesh is not None:
+            batch = multiproc.shard_batch(batch, mesh)
         before = dict(ops.LAUNCHES)
         if on_card:
             torch.cuda.reset_peak_memory_stats()
@@ -165,6 +192,8 @@ def main(argv=None):
     ap.add_argument("--strict-descent", action="store_true")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--history-out", default=None)
+    ap.add_argument("--num-processes", type=int, default=1,
+                    help="data-parallel HF over N processes (gloo), N > 1")
     for flag, (kind, default, _) in UNPORTED_FLAGS.items():
         ap.add_argument("--" + flag.replace("_", "-"), type=kind, default=default)
     args = ap.parse_args(argv)
@@ -172,6 +201,13 @@ def main(argv=None):
         if getattr(args, flag) != default:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')}: {what} is not ported yet")
+    if args.num_processes > 1 and not multiproc.active():
+        require_linearize(args.curvature_mode)  # before N processes start
+        multiproc.spawn(args.num_processes, "repro_torch.launch.train",
+                        list(sys.argv[1:] if argv is None else argv))
+        return
+    distributed = multiproc.active()
+    device = multiproc.initialize_from_env(args.device) if distributed else args.device
 
     _, _, history = train(
         args.arch, smoke=args.smoke, solver=args.solver, steps=args.steps,
@@ -185,12 +221,17 @@ def main(argv=None):
         sstep=args.sstep, sstep_solver=args.sstep_solver,
         sstep_basis=args.sstep_basis, overlap=args.overlap,
         nc_mode=args.nc_mode, strict_descent=args.strict_descent,
-        device=args.device,
+        distributed=distributed, device=device,
     )
     if args.history_out:
-        os.makedirs(os.path.dirname(args.history_out) or ".", exist_ok=True)
-        with open(args.history_out, "w") as f:
+        path = args.history_out
+        if not multiproc.is_primary():
+            path = f"{path}.rank{torch.distributed.get_rank()}"
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as f:
             json.dump(history, f, indent=1)
+    if distributed:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

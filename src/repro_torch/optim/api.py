@@ -10,9 +10,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
-from torch.utils._pytree import tree_map
-
 from ..configs.base import HFOptConfig
+from ..core.distributed import data_parallel_hf_step, slice_batch as _slice_batch
 from ..core.hf import HFConfig, hf_init, hf_step
 from .first_order import adam, momentum_sgd, sgd
 
@@ -23,14 +22,6 @@ class Optimizer(NamedTuple):
     name: str
     init: Callable[[Any], Any]
     step: Callable[..., tuple]  # (params, state, batch) -> (params, state, metrics)
-
-
-def _slice_batch(batch, frac: float):
-    """The curvature mini-batch: the leading ``frac`` of every leaf (at
-    least one example)."""
-    if frac >= 1.0:
-        return batch
-    return tree_map(lambda x: x[:max(int(x.shape[0] * frac), 1)], batch)
 
 
 def hf_config(opt: HFOptConfig) -> HFConfig:
@@ -58,12 +49,15 @@ def hf_config(opt: HFOptConfig) -> HFConfig:
 
 def make_optimizer(opt: HFOptConfig, loss_fn, model_out_fn=None, out_loss_fn=None,
                    mesh=None, *, device="cuda") -> Optimizer:
-    """``mesh`` (the reference's data-parallel step) is slice 2 of the port
-    (ROADMAP item 10) and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the data-parallel HF step (mesh=) is not ported yet (ROADMAP item 10)")
+    """``mesh`` (a ``DataMesh``, ``launch.mesh.make_data_mesh``) selects the
+    data-parallel HF step (``core.distributed``): the batch is this
+    process's shard, params and state are replicated, and the curvature
+    batch is the leading ``hvp_batch_frac`` of the shard. First-order
+    optimizers take no mesh."""
     if opt.name in FIRST_ORDER:
+        if mesh is not None:
+            raise ValueError(
+                f"mesh= is only supported for the HF optimizers (got first-order {opt.name!r})")
         fo = {
             "sgd": lambda: sgd(opt.lr),
             "momentum": lambda: momentum_sgd(opt.lr, opt.momentum),
@@ -79,6 +73,12 @@ def make_optimizer(opt: HFOptConfig, loss_fn, model_out_fn=None, out_loss_fn=Non
 
     def init(params):
         return hf_init(params, cfg, device=device)
+
+    if mesh is not None:
+        step = data_parallel_hf_step(
+            loss_fn, mesh, cfg, hvp_frac=opt.hvp_batch_frac,
+            model_out_fn=model_out_fn, out_loss_fn=out_loss_fn, device=device)
+        return Optimizer(opt.name, init, step)
 
     def step(params, state, batch):
         return hf_step(loss_fn, params, state, batch, _slice_batch(batch, opt.hvp_batch_frac),
