@@ -92,6 +92,30 @@ Phases, each printed on lines of its own; any failure exits non-zero:
              against the unsharded ``flash_decode`` route: ≤ 1e-5 (f32) and
              ≤ 1e-2 (bf16) of max|y|. NCCL is not tried: it takes a card a
              rank.
+6c. operations (after the transformer phases, which hand it their state) —
+             (b) from the transformer slice's state, one full-width gn_cg step
+             through ``launch.train.train`` without a telemetry sink and one
+             with it: the same loss bits, parameters and launches, both walls
+             printed; one TIMIT gn_cg s=4 newton step (λ₀ 0.01) with a sink: a
+             Ritz event per executed cycle (Gram launch). (a) ``python -m
+             repro_torch.launch.train`` on the transformer slice (full
+             Qwen1.5-0.5B, gn_cg, flat, flash), 2 steps, a checkpoint a step,
+             ``REPRO_TORCH_FAULTS=corrupt_ckpt@step=2`` and a telemetry
+             directory: the newest checkpoint fails ``verify_checkpoint``,
+             ``latest_valid_step`` is 1, a fresh process resumes from it and
+             replays step 1 to run 1's loss within 1e-6; the checkpoint's
+             bytes and its save, verify and restore seconds; run 1's phases
+             in the reference's gn_cg order, every device-timed marker inside
+             its step's ``host_step`` span (1 ms), one solve event a step
+             equal to its metrics, ``trace.json`` written. (c) 2 gloo ranks
+             on the card (smoke Qwen1.5-0.5B, the reference chaos check's
+             arguments, gn_cg, flat, flash, 4 steps): an unsupervised
+             baseline, then ``kill@step=2,proc=1`` under ``--max-restarts 2
+             --hang-timeout 300``: at least one restart, steps 2-3 resumed at
+             the baseline's losses within 1e-6, the kill in the telemetry at
+             step 2. (d) the same with ``hang@step=2,proc=1,secs=600`` and
+             ``--watchdog-s 5 --max-restarts 1``: rank 0 exits with 87, the
+             restart comes well inside the hang timeout, the same losses.
 7. transformer — the transformer main path through
              ``repro_torch.launch.train.train``: Qwen1.5-0.5B at full width
              and depth (464,118,784 parameters, bf16, random weights from
@@ -138,7 +162,11 @@ Phases, each printed on lines of its own; any failure exits non-zero:
              kernels against the plain route and paged against dense (within
              1e-2 of max|logit|), the prefill profiled, and 8 decode steps
              timed and profiled, dense and then paged (each decode kernel's
-             launches a step must be 28, one a layer).
+             launches a step must be 28, one a layer). Operations part (e):
+             both runs again with a telemetry sink, the same tokens and
+             launches, a ``request`` span per request with a finite time to
+             first token, ``queue_depth`` and ``pages_free`` on every tick;
+             tok/s with and without the sink.
 12. serve checks — qwen2-1.5b's smoke config (hd 32) in f32 with flash on
              the card: continuous batching (3 requests on 2 slots) gives
              batch-at-once's tokens, the card gives the CPU's tokens for both,
@@ -1581,8 +1609,78 @@ def phase_serve(torch, ops):
           f"random weights, not gated): {same} of {sum(gen_lens[:SERVE_B])} equal, first "
           f"tokens {sum(int(dense[r, 0] == cont[r, 0]) for r in range(SERVE_B))} of {SERVE_B}, "
           f"common prefix median {sorted(prefix)[SERVE_B // 2]}", flush=True)
+    _serve_with_sink(torch, ops, kw, prompts, gen_lens, arrivals, (dense, st, dense_launches),
+                     (cont, cs, cont_launches))
     return params, prompts, {"flash_decode": dense_launches["flash_decode"],
                              "flash_decode_paged": cont_launches["flash_decode_paged"]}
+
+
+def _serve_with_sink(torch, ops, kw, prompts, gen_lens, arrivals, dense_run, cont_run):
+    """Both serving runs again with a telemetry sink, on the same parameters,
+    prompts and arrivals (operations phase, part e): the same tokens and
+    launches, one ``request`` span per request with a finite time to first
+    token, the ``queue_depth`` and ``pages_free`` counters on every
+    scheduler tick; tok/s with and without the sink."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch.serve import serve, serve_continuous
+    from repro_torch.obs import telemetry, trace
+
+    print(f"[serve-sink] {card_line()}", flush=True)
+    (dense, st, dense_launches), (cont, cs, cont_launches) = dense_run, cont_run
+    with tempfile.TemporaryDirectory() as td:
+        sink = telemetry.Telemetry(td, meta=dict(kind="serve", arch=QWEN2))
+        ops.reset_launches()
+        with _SinkClock() as dense_spent:
+            dense_s, st_s = serve(QWEN2, batch_size=SERVE_B, prompt_len=SERVE_S,
+                                  gen_len=SERVE_GEN, prompts=prompts[:SERVE_B], telemetry=sink,
+                                  **kw)
+        dl = dict(ops.LAUNCHES)
+        ops.reset_launches()
+        with _SinkClock() as cont_spent:
+            cont_s, cs_s = serve_continuous(QWEN2, batch_size=SERVE_B, n_requests=SERVE_REQ,
+                                            prompt_len=SERVE_S, gen_len=SERVE_GEN,
+                                            page_size=SERVE_PS, arrival_steps=arrivals,
+                                            gen_lens=gen_lens, prompts=prompts, telemetry=sink,
+                                            **kw)
+        cl = dict(ops.LAUNCHES)
+        sink.close()
+        print(f"[serve-sink] host time inside the sink: batch-at-once "
+              f"{1e6 * dense_spent['total']:.1f} us in all "
+              f"({1e6 * dense_spent['total'] / st_s['n_tok']:.4f} us a token), continuous "
+              f"{1e3 * cont_spent['total']:.3f} ms in all "
+              f"({1e6 * cont_spent['total'] / cs_s['n_tok']:.3f} us a token, "
+              f"{1e6 * cont_spent['total'] / cs_s['steps']:.2f} us a tick)", flush=True)
+        out = trace.merge_dir(td)
+        evs = trace.load_events(td)
+        print(f"[serve-sink] walls (host-bound decode, noisy between runs): batch-at-once "
+              f"{st['tok_per_s']:.1f} tok/s without the sink, "
+              f"{st_s['tok_per_s']:.1f} with it (decode {st['tok_per_s_decode']:.1f} and "
+              f"{st_s['tok_per_s_decode']:.1f}); continuous: {cs['tok_per_s']:.1f} and "
+              f"{cs_s['tok_per_s']:.1f} tok/s; launches with the sink {dl} and {cl}; "
+              f"{len(evs)} events, trace {Path(out).stat().st_size} bytes", flush=True)
+        if not (np.array_equal(dense_s, dense) and np.array_equal(cont_s, cont)):
+            fail("serving with a telemetry sink gave other tokens than without it")
+        if dl != dense_launches or cl != cont_launches:
+            fail(f"launches with the sink {dl} {cl} differ from {dense_launches} "
+                 f"{cont_launches}")
+        reqs = [e for e in evs if e["ev"] == "span" and e["name"] == "request"]
+        ttfts = [e["ttft_s"] for e in reqs]
+        if sorted(e["req"] for e in reqs) != list(range(SERVE_REQ)) or not all(
+                isinstance(t, float) and math.isfinite(t) and t > 0 for t in ttfts):
+            fail(f"request spans {[(e['req'], e['ttft_s']) for e in reqs]}")
+        for name in ("queue_depth", "pages_free"):
+            n = sum(1 for e in evs if e["ev"] == "counter" and e["name"] == name)
+            if n != cs_s["steps"]:
+                fail(f"{n} {name} counters for {cs_s['steps']} scheduler ticks")
+        spans = sorted(e["name"] for e in evs if e["ev"] == "span" and e["name"] != "request")
+        if spans != ["decode", "prefill"]:
+            fail(f"batch-at-once spans {spans}")
+        print(f"[serve-sink] {len(reqs)} request spans, time to first token median "
+              f"{1e3 * sorted(ttfts)[len(ttfts) // 2]:.2f} ms; queue_depth and pages_free on "
+              f"all {cs_s['steps']} ticks", flush=True)
 
 
 def _rel_logits(a, b):
@@ -2394,6 +2492,314 @@ def phase_data_parallel(torch):
     print(f"[dp] phase wall {time.perf_counter() - t0:.1f} s ({card_line()})", flush=True)
 
 
+# ------------------------------------------------------------ operations --
+OPS_TRAIN = ["--arch", QWEN, "--full", "--flash-attention", "--solver", "gn_cg",
+             "--krylov-backend", "flat", "--batch-size", "8", "--seq-len", "512",
+             "--hvp-batch-frac", "0.25", "--max-cg-iters", "8"]
+# The chaos runs: the reference's chaos arguments (benchmarks/chaos_check.py
+# BASE_ARGS) on the smoke Qwen1.5-0.5B, gn_cg through the flat and flash
+# kernels, 2 gloo ranks on the card.
+OPS_CHAOS = ["--arch", QWEN, "--smoke", "--batch-size", "4", "--seq-len", "16",
+             "--max-cg-iters", "4", "--solver", "gn_cg", "--krylov-backend", "flat",
+             "--flash-attention", "--steps", "4", "--num-processes", "2"]
+GN_PHASES = ["grad_build", "curvature_primal", "krylov_solve", "line_search", "update_damping"]
+OPS_KERNELS = ("dot2", "residual_dots") + FLASH_NAMES   # gn_cg: CG launches no x_update
+OPS_HANG_TIMEOUT = 300
+
+
+def _ops_run(cmd, env, timeout, what):
+    """One train CLI run; returns (completed process, wall seconds)."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *cmd],
+                         capture_output=True, text=True, timeout=timeout, env=env)
+    wall = time.perf_counter() - t0
+    print(f"[ops] {what}: exit {res.returncode} in {wall:.1f} s", flush=True)
+    if res.returncode != 0:
+        fail(f"{what}: exit {res.returncode}\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    return res, wall
+
+
+def _ops_launches(hist):
+    return {k: sum(h["launches"][k] for h in hist) for k in OPS_KERNELS}
+
+
+def _ops_telemetry_gates(trace, tel, hist, phases):
+    """Run 1's telemetry: the reference's phase order a step, every marker
+    inside its step's host_step span (1 ms for clock alignment), one solve
+    event a step equal to its metrics, and the merged trace.json."""
+    evs = trace.load_events(str(tel))
+    hosts = {e["step"]: e for e in evs if e["ev"] == "span" and e["name"] == "host_step"}
+    for h in hist:
+        i = h["step"]
+        spans = [sp for sp in trace.phase_spans(evs) if sp["step"] == i]
+        names = [sp["name"] for sp in spans]
+        marks = [e for e in evs if e["ev"] == "phase" and e["step"] == i]
+        host = hosts.get(i)
+        outside = [e for e in marks if host is None
+                   or not host["t0"] - 1e-3 <= e["ts"] <= host["t1"] + 1e-3]
+        solves = [e for e in evs if e["ev"] == "solve" and e["step"] == i]
+        print(f"[ops] step {i} phases (device-timed): "
+              + ", ".join(f"{sp['name']} {1e3 * (sp['t1'] - sp['t0']):.2f} ms" for sp in spans)
+              + f"; host_step {1e3 * (host['t1'] - host['t0']):.2f} ms; solve "
+              f"{[(e['iters'], e['syncs']) for e in solves]}", flush=True)
+        if names != phases:
+            fail(f"step {i}: phases {names}, the reference's order is {phases}")
+        if outside:
+            fail(f"step {i}: markers outside host_step {host}: {outside}")
+        if len(solves) != 1 or (solves[0]["iters"], solves[0]["syncs"]) != (
+                int(h["cg_iters"]), int(h["krylov_syncs"])):
+            fail(f"step {i}: solve events {solves} against cg_iters {h['cg_iters']}, "
+                 f"krylov_syncs {h['krylov_syncs']}")
+    compile_spans = [e for e in evs if e["ev"] == "span" and e["name"] == "compile"]
+    if len(compile_spans) != 1 or not (tel / "trace.json").exists():
+        fail(f"compile spans {compile_spans}; trace.json written: {(tel / 'trace.json').exists()}")
+
+
+def _ops_resume(tmp, env):
+    """Part (a): full-width gn_cg, a checkpoint a step, the newest one
+    corrupted; a fresh process resumes from the one before and replays its
+    step to the same loss."""
+    from repro_torch.checkpoint import (CheckpointCorruptError, latest_step, latest_valid_step,
+                                        verify_checkpoint)
+    from repro_torch.obs import trace
+
+    ck, tel, h1, h2 = tmp / "ckpt", tmp / "tel", tmp / "run1.json", tmp / "run2.json"
+    _ops_run(OPS_TRAIN + ["--steps", "2", "--ckpt-dir", str(ck), "--ckpt-every", "1",
+                          "--telemetry-dir", str(tel), "--history-out", str(h1)],
+             dict(env, REPRO_TORCH_FAULTS="corrupt_ckpt@step=2"), 900,
+             "run 1 (2 steps, a checkpoint a step, corrupt_ckpt@step=2)")
+    run1 = json.loads(h1.read_text())
+    newest, valid = latest_step(str(ck)), latest_valid_step(str(ck))
+    try:
+        verify_checkpoint(str(ck / f"ckpt_{newest:08d}.npz"))
+        fail(f"the corrupted checkpoint of step {newest} verified")
+    except CheckpointCorruptError as e:
+        print(f"[ops] newest checkpoint (step {newest}) refused: {str(e)[-120:]}", flush=True)
+    if valid != 1:
+        fail(f"latest_valid_step {valid}, expected 1")
+    path = ck / f"ckpt_{valid:08d}.npz"
+    t0 = time.perf_counter()
+    manifest = verify_checkpoint(str(path))
+    verify_s = time.perf_counter() - t0
+    _ops_run(OPS_TRAIN + ["--steps", "2", "--ckpt-dir", str(ck), "--history-out", str(h2)],
+             env, 900, "run 2 (a fresh process, resume)")
+    run2 = json.loads(h2.read_text())
+    if [h["step"] for h in run2] != [1]:
+        fail(f"run 2 ran steps {[h['step'] for h in run2]}, expected [1]")
+    a, b = run1[1]["loss"], run2[0]["loss"]
+    saves = [round(h["ckpt_save_s"], 3) for h in run1]
+    print(f"[ops] checkpoint {path.stat().st_size} bytes ({len(manifest['checksums'])} arrays); "
+          f"save {saves} s, verify {verify_s:.3f} s, restore {run2[0]['restore_s']:.3f} s; "
+          f"kernel build before the first step {run1[0]['compile_s']:.2f} s; step walls run 1 "
+          f"{[round(h['wall_s'], 3) for h in run1]} s, run 2 {run2[0]['wall_s']:.3f} s; "
+          f"replayed step 1 loss {b!r} against {a!r}, |diff| {abs(a - b):.3e} (limit 1e-6)",
+          flush=True)
+    print(f"[ops] launches run 1 {_ops_launches(run1)}, run 2 {_ops_launches(run2)}", flush=True)
+    if not all(n > 0 for n in _ops_launches(run1).values()):
+        fail(f"run 1 did not launch every kernel of its path: {_ops_launches(run1)}")
+    if not abs(a - b) <= 1e-6:
+        fail(f"the replayed step 1 loss {b} differs from run 1's {a}")
+    _ops_telemetry_gates(trace, tel, run1, GN_PHASES)
+
+
+def _ops_chaos(tmp, env, fault, extra, what, baseline):
+    """Parts (c) and (d): the 2-rank chaos run through the train CLI under
+    the supervisor; returns the restarts and the supervisor's log."""
+    from repro_torch.obs import trace
+
+    tel, hist = tmp / f"{what}_tel", tmp / f"{what}.json"
+    res, wall = _ops_run(OPS_CHAOS + ["--ckpt-dir", str(tmp / f"{what}_ckpt"),
+                                      "--ckpt-every", "1", "--telemetry-dir", str(tel),
+                                      "--history-out", str(hist), *extra],
+                         dict(env, REPRO_TORCH_FAULTS=fault), 600, f"{what}: {fault}")
+    m = re.search(r"run completed after (\d+) restart", res.stderr)
+    restarts = int(m.group(1)) if m else -1
+    failures = [ln for ln in res.stderr.splitlines() if "failed:" in ln]
+    resumed = {h["step"]: h for h in json.loads(hist.read_text())}
+    deltas = {i: abs(baseline[i]["loss"] - h["loss"]) for i, h in resumed.items()}
+    evs = trace.load_events(str(tel))
+    faults = trace.fault_events(evs)
+    injected = [e for e in faults if e.get("injected")]
+    restart_meta = [e for e in evs if e["ev"] == "meta" and e.get("attempt") == 1]
+    t_fault = injected[0]["ts"] if injected else float("nan")
+    to_restart = min(e["ts"] for e in restart_meta) - t_fault if restart_meta else float("inf")
+    signals = [e["ts"] - t_fault for e in faults if e["kind"] == "signal"]
+    print(f"[ops] {what}: restarts {restarts}; supervisor {failures}; resumed steps "
+          f"{sorted(resumed)} losses {[resumed[i]['loss'] for i in sorted(resumed)]} against "
+          f"the baseline's {[baseline[i]['loss'] for i in sorted(resumed)]}, max |diff| "
+          f"{max(deltas.values()) if deltas else float('nan'):.3e}; injected "
+          f"{[(e['kind'], e['step'], e['proc']) for e in injected]}; teardown signals "
+          f"{[round(t, 2) for t in signals]} s after the fault; the restarted attempt's sinks "
+          f"{to_restart:.2f} s after it; launches {_ops_launches(resumed.values())}", flush=True)
+    if restarts < 1:
+        fail(f"{what}: no restart ({res.stderr[-2000:]})")
+    if not all(n > 0 for n in _ops_launches(resumed.values()).values()):
+        fail(f"{what}: the resumed steps did not launch every kernel of their path")
+    if not resumed or min(resumed) > 2 or max(resumed) != 3:
+        fail(f"{what}: resumed steps {sorted(resumed)}")
+    if not max(deltas.values()) <= 1e-6:
+        fail(f"{what}: resumed losses differ from the baseline by {deltas}")
+    if not injected or injected[0]["step"] != 2:
+        fail(f"{what}: the injected fault is not in the telemetry at step 2: {faults}")
+    return restarts, failures, to_restart
+
+
+def _ops_ritz(torch, ops, tmp):
+    """Part (b), second half: one TIMIT s-step gn_cg step (s 4, newton,
+    λ₀ 0.01, as phase 4) with a sink: one Ritz event per executed cycle."""
+    from repro_torch.configs.paper_mlp import TIMIT_FIG5
+    from repro_torch.core.hf import HFConfig, hf_init, hf_step
+    from repro_torch.data.synthetic import classification_dataset
+    from repro_torch.models.mlp import build_mlp
+    from repro_torch.obs import telemetry, trace
+
+    model = build_mlp(TIMIT_FIG5)
+    params = _timit_start(torch, model)
+    batch = classification_dataset(torch.Generator().manual_seed(1), 4096, TIMIT_FIG5[0],
+                                   TIMIT_FIG5[-1])
+    hvp_batch = {k: v[:1024] for k, v in batch.items()}
+    cfg = HFConfig(solver="gn_cg", krylov_backend="flat", max_cg_iters=SSTEP_K, cg_tol=0.0,
+                   sstep_s=4, sstep_basis="newton", init_damping=SSTEP_LAM)
+    d = tmp / "ritz"
+    sink = telemetry.Telemetry(str(d))
+    ops.reset_launches()
+    with telemetry.install(sink):
+        _, _, m = hf_step(model.loss_fn, params, hf_init(params, cfg), batch, hvp_batch, cfg,
+                          model_out_fn=model.logits_fn, out_loss_fn=model.out_loss_fn)
+        torch.cuda.synchronize()
+    sink.close()
+    cycles = ops.LAUNCHES["dots_block"]
+    ritz = [e for e in trace.load_events(str(d)) if e["ev"] == "ritz"]
+    print(f"[ops] TIMIT gn_cg s=4 newton λ0={SSTEP_LAM} with a sink: cg_iters "
+          f"{int(m['cg_iters'])}, krylov_syncs {int(m['krylov_syncs'])}, executed cycles (Gram "
+          f"launches) {cycles}, ritz events {len(ritz)}, sstep_fallback "
+          f"{bool(m['sstep_fallback'])}; first Ritz values "
+          f"{ritz[0]['values'] if ritz else None}", flush=True)
+    if len(ritz) != cycles or cycles == 0 or not all(e["basis"] == "newton" for e in ritz):
+        fail(f"{len(ritz)} ritz events for {cycles} executed cycles")
+
+
+class _SinkClock:
+    """Host seconds spent inside the telemetry code while it is active: the
+    step's hooks (``_record``, ``anchor``), ``flush`` and every ``emit``
+    (the outermost call of each nest counted once in ``total``). A
+    measuring harness: it wraps the functions and restores them."""
+
+    def __init__(self):
+        from repro_torch.obs import telemetry
+
+        self.tel = telemetry
+        self.spent = {"hooks": 0.0, "flush": 0.0, "emit": 0.0, "total": 0.0}
+        self._depth = 0
+        self._real = {"_record": telemetry._record, "anchor": telemetry.anchor,
+                      "flush": telemetry.flush}
+        self._real_emit = telemetry.Telemetry.emit
+
+    def _wrap(self, key, fn):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            self._depth += 1
+            try:
+                return fn(*a, **k)
+            finally:
+                self._depth -= 1
+                dt = time.perf_counter() - t0
+                self.spent[key] += dt
+                if self._depth == 0:
+                    self.spent["total"] += dt
+        return timed
+
+    def __enter__(self):
+        for name, key in (("_record", "hooks"), ("anchor", "hooks"), ("flush", "flush")):
+            setattr(self.tel, name, self._wrap(key, self._real[name]))
+        self.tel.Telemetry.emit = self._wrap("emit", self._real_emit)
+        return self.spent
+
+    def __exit__(self, *exc):
+        for name, fn in self._real.items():
+            setattr(self.tel, name, fn)
+        self.tel.Telemetry.emit = self._real_emit
+        return False
+
+
+def phase_operations_sink(torch, ops, params, state):
+    """Operations, part (b): from one full-width state, gn_cg steps without
+    a telemetry sink and with it, alternated twice, give the same loss bits,
+    parameters and launches; the walls' difference is what the sink
+    costs."""
+    import tempfile
+
+    from repro_torch.launch.train import train
+    from torch.utils._pytree import tree_leaves
+
+    print(f"[ops] {card_line()}", flush=True)
+    log = lambda line: None  # noqa: E731
+    runs = {False: [], True: []}
+    for sink in (False, True, False, True):   # alternated: the first call warms up
+        with tempfile.TemporaryDirectory() as td, _SinkClock() as spent:
+            p, _, (h,) = train(QWEN, solver="gn_cg", steps=3, start=2, params=params,
+                               state=state, telemetry_dir=td if sink else None, log_fn=log,
+                               **SLICE_KW)
+            if sink:
+                h["events"] = sum(1 for _ in open(Path(td) / "events-p0.jsonl"))
+        h["sink_s"] = dict(spent)
+        runs[sink].append((p, h))
+    ref_p, ref = runs[False][0]
+    for sink, (p, h) in [(s_, r) for s_ in (False, True) for r in runs[s_]]:
+        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(ref_p), tree_leaves(p)))
+        if (h["loss"], h["loss_new"]) != (ref["loss"], ref["loss_new"]) or not same:
+            fail(f"a gn_cg step {'with' if sink else 'without'} a telemetry sink differs: "
+                 f"loss {h['loss']!r} -> {h['loss_new']!r} against {ref['loss']!r} -> "
+                 f"{ref['loss_new']!r}, parameters equal {same}")
+        if h["launches"] != ref["launches"]:
+            fail(f"launches {h['launches']} against {ref['launches']}")
+    walls = {k: [h["wall_s"] for _, h in v] for k, v in runs.items()}
+    print(f"[ops] full-width gn_cg step from one state, alternating without / with a sink: "
+          f"walls without {[round(w, 4) for w in walls[False]]} s, with "
+          f"{[round(w, 4) for w in walls[True]]} s (second pair's difference "
+          f"{1e3 * (walls[True][1] - walls[False][1]):.2f} ms); the same loss bits "
+          f"{ref['loss']!r} -> {ref['loss_new']!r}, parameters and launches {ref['launches']}; "
+          f"{runs[True][0][1]['events']} events a step", flush=True)
+    for sink, pairs in runs.items():
+        print(f"[ops] host time inside the telemetry code a step {'with' if sink else 'without'}"
+              f" a sink (the train loop's sink set-up, hooks, flush, emits): "
+              + "; ".join(", ".join(f"{k} {1e3 * v:.3f} ms" for k, v in h["sink_s"].items())
+                          for _, h in pairs), flush=True)
+    if any(v != 0.0 for _, h in runs[False] for v in h["sink_s"].values()):
+        fail("the telemetry code ran in a step without a sink")
+
+
+def phase_operations(torch, ops):
+    """Operations, parts (a), (b: Ritz events), (c) and (d)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    print(f"[ops] {card_line()}", flush=True)
+    env = _dp_env()
+    with tempfile.TemporaryDirectory() as td:
+        tmp = Path(td)
+        _ops_ritz(torch, ops, tmp)
+        _ops_resume(tmp, env)
+        base = tmp / "base.json"
+        _ops_run(OPS_CHAOS + ["--history-out", str(base)], env, 600,
+                 "chaos baseline (2 ranks, 4 steps, unsupervised)")
+        baseline = {h["step"]: h for h in json.loads(base.read_text())}
+        print(f"[ops] baseline losses {[baseline[i]['loss'] for i in sorted(baseline)]}",
+              flush=True)
+        _ops_chaos(tmp, env, "kill@step=2,proc=1",
+                   ["--max-restarts", "2", "--hang-timeout", str(OPS_HANG_TIMEOUT)], "kill",
+                   baseline)
+        _, failures, to_restart = _ops_chaos(
+            tmp, env, "hang@step=2,proc=1,secs=600",
+            ["--watchdog-s", "5", "--max-restarts", "1", "--hang-timeout",
+             str(OPS_HANG_TIMEOUT)], "watchdog", baseline)
+        if not any("process 0: exit 87" in ln for ln in failures):
+            fail(f"watchdog: rank 0 did not exit with 87: {failures}")
+        if not to_restart < OPS_HANG_TIMEOUT / 5:
+            fail(f"watchdog: the restart came {to_restart:.1f} s after the hang")
+    print(f"[ops] phase wall {time.perf_counter() - t0:.1f} s ({card_line()})", flush=True)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -2432,8 +2838,10 @@ def main() -> None:
     qparams, qstate, t_launches = phase_transformer(torch, ops)
     launches.update({name: t_launches[name] for name in FLASH_NAMES})
     phase_transformer_profile(torch, qparams, qstate)
+    phase_operations_sink(torch, ops, qparams, qstate)
     del qparams, qstate
     torch.cuda.empty_cache()
+    phase_operations(torch, ops)
     phase_transformer_checks(torch)
     torch.cuda.empty_cache()
     records.update(phase_decode(torch))

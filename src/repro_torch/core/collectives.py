@@ -28,22 +28,37 @@ differentiable, so the double-backward graphs of the curvature engine
 ``all_reduce`` would all-reduce again in its backward.)
 
 The reference's jaxpr walk has no twin: the executed count is the audit.
-The collective watchdog (reference :102-206) serves the supervised restarts
-and comes with them (ROADMAP item 23).
+
+**Telemetry and the watchdog.** While a telemetry sink is installed
+(``obs.telemetry.install``) every reduce emits a ``coll`` span, and while
+:func:`collective_watchdog` is installed every reduce arms the watchdog:
+both begin when the all-reduce is issued and end when it completes. For a
+blocking :func:`preduce` that is when the host's wait returns; for a reduce
+started ahead (:func:`preduce_start`, the hidden gradient reduce) it is
+when gloo's work completes (its future's callback), not when the host gets
+round to waiting, which is what the reference's output-ready callback
+measures. The span's label is ``telemetry.collective_label``'s, else the
+tag.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import os
+import sys
+import threading
 import time
-from typing import Any, Iterator
+from typing import Any, Callable, Iterator, Optional
 
 import torch
 import torch.distributed as dist
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
-# Exit code of a worker whose collective watchdog fired (the reference's;
-# the watchdog itself comes with the supervisor, ROADMAP item 23).
+from ..obs import telemetry as _telemetry
+
+# Exit code of a worker whose collective watchdog fired. Distinct from
+# Python's 0/1/2 and from signal deaths, so the supervisor
+# (launch/multiproc.py, which keeps a copy) can tell it from a crash.
 EXIT_WATCHDOG = 87
 
 _OPS = {"mean": dist.ReduceOp.SUM, "sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
@@ -110,6 +125,128 @@ def count_executed() -> Iterator[CollectiveCounts]:
         _active = prev
 
 
+class Watchdog:
+    """Turn an indefinitely blocking collective into a detectable death.
+
+    A gloo all-reduce whose peer died may block for ``PG_TIMEOUT_S`` inside
+    a C++ call, where no Python exception can be raised and no signal
+    handler runs. A side thread notices that a collective has been
+    outstanding too long and hard-exits the process with
+    ``EXIT_WATCHDOG``; the supervisor (``launch.multiproc.spawn_supervised``)
+    then restarts the job from its newest valid checkpoint.
+
+    :func:`preduce` arms it when an all-reduce is issued and disarms it when
+    that reduce completes, pairing per tag in FIFO order. ``on_timeout``
+    (tests) replaces the hard exit with a callable ``(tag, waited_s)``.
+    """
+
+    def __init__(self, timeout_s: float,
+                 on_timeout: Optional[Callable[[str, float], None]] = None,
+                 poll_s: Optional[float] = None):
+        self.timeout_s = float(timeout_s)
+        self.on_timeout = on_timeout
+        self._poll_s = poll_s if poll_s is not None else max(0.05, self.timeout_s / 4.0)
+        self._lock = threading.Lock()
+        self._outstanding: dict = {}   # tag -> deque of arm timestamps
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.fired = False
+        self.fired_tag: Optional[str] = None
+
+    def arm(self, tag: str) -> None:
+        with self._lock:
+            self._outstanding.setdefault(tag, collections.deque()).append(time.time())
+
+    def disarm(self, tag: str) -> None:
+        with self._lock:
+            q = self._outstanding.get(tag)
+            if q:
+                q.popleft()
+
+    def _oldest_overdue(self, now: float):
+        with self._lock:
+            for tag, q in self._outstanding.items():
+                if q and now - q[0] > self.timeout_s:
+                    return tag, now - q[0]
+        return None
+
+    def start(self) -> "Watchdog":
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="collective-watchdog")
+        self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        while not self._stop.wait(self._poll_s):
+            hit = self._oldest_overdue(time.time())
+            if hit is None:
+                continue
+            tag, waited = hit
+            self.fired, self.fired_tag = True, tag
+            if self.on_timeout is not None:
+                self.on_timeout(tag, waited)
+                return
+            sys.stderr.write(
+                f"[watchdog] collective {tag!r} blocked {waited:.1f}s "
+                f"(> {self.timeout_s:.1f}s); peer presumed dead: exiting {EXIT_WATCHDOG}\n")
+            sys.stderr.flush()
+            # os._exit, not sys.exit: the main thread is wedged in gloo's C++
+            # wait and would never unwind a SystemExit.
+            os._exit(EXIT_WATCHDOG)
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=1.0)
+
+
+_watchdog: Optional[Watchdog] = None
+
+
+@contextlib.contextmanager
+def collective_watchdog(timeout_s: float, on_timeout: Optional[Callable] = None,
+                        poll_s: Optional[float] = None):
+    """Arm a :class:`Watchdog` around every ``preduce`` issued inside this
+    context. The monitor thread starts at once and stops when the context
+    exits."""
+    global _watchdog
+    wd = Watchdog(timeout_s, on_timeout, poll_s).start()
+    prev, _watchdog = _watchdog, wd
+    try:
+        yield wd
+    finally:
+        _watchdog = prev
+        wd.stop()
+
+
+class _Watch:
+    """One reduce's telemetry span and watchdog window: begun when it is
+    built (at the issue), ended once by :meth:`end`, or by
+    :meth:`one_done` when the last of its all-reduces completes."""
+
+    def __init__(self, sink, wd, tag, n_works):
+        self.sink, self.wd, self.tag = sink, wd, tag
+        self.label = _telemetry.current_collective_label() or tag
+        self._left, self._lock = n_works, threading.Lock()
+        if wd is not None:
+            wd.arm(tag)
+        if sink is not None:
+            sink.collective_begin(tag, self.label)
+
+    def end(self) -> None:
+        if self.wd is not None:
+            self.wd.disarm(self.tag)
+        if self.sink is not None:
+            self.sink.collective_end(self.tag, self.label)
+
+    def one_done(self, _fut=None) -> None:
+        with self._lock:
+            self._left -= 1
+            last = self._left == 0
+        if last:
+            self.end()
+
+
 def _mesh(mesh_or_group) -> DataMesh:
     return mesh_or_group if isinstance(mesh_or_group, DataMesh) else DataMesh(mesh_or_group)
 
@@ -117,15 +254,18 @@ def _mesh(mesh_or_group) -> DataMesh:
 class PendingReduce:
     """A reduce in flight: :meth:`wait` returns the reduced tree."""
 
-    def __init__(self, works, bufs, leaves, spec, divisor, tag, counter, t_issue, ahead):
+    def __init__(self, works, bufs, leaves, spec, divisor, tag, counter, t_issue, ahead,
+                 watch):
         self._works, self._bufs, self._leaves, self._spec = works, bufs, leaves, spec
         self._divisor, self._tag, self._counter, self._t_issue = divisor, tag, counter, t_issue
-        self._ahead = ahead
+        self._ahead, self._watch = ahead, watch
 
     def wait(self):
         t0 = time.perf_counter()
         for w in self._works:
             w.wait()
+        if self._watch is not None and not self._ahead:
+            self._watch.end()
         if self._counter is not None and self._ahead:
             self._counter.wait_seconds[self._tag] += time.perf_counter() - t0
         out = [None] * len(self._leaves)
@@ -160,18 +300,22 @@ def _issue(tree, mesh_or_group, tag, op, count, ahead) -> PendingReduce:
     by_dtype: dict = {}
     for i, leaf in enumerate(leaves):
         by_dtype.setdefault(leaf.dtype, []).append(i)
-    bufs, works = [], []
-    for idx in by_dtype.values():
-        buf = torch.cat([leaves[i].detach().reshape(-1) for i in idx])
-        works.append(mesh.all_reduce(buf, op))
-        bufs.append((idx, buf))
+    bufs = [(idx, torch.cat([leaves[i].detach().reshape(-1) for i in idx]))
+            for idx in by_dtype.values()]
+    sink, wd = _telemetry.active(), _watchdog
+    watch = None if sink is None and wd is None else _Watch(sink, wd, tag, len(bufs))
+    works = [mesh.all_reduce(buf, op) for _, buf in bufs]
+    if watch is not None and ahead:
+        # Ended by gloo's thread when the last all-reduce completes.
+        for w in works:
+            w.get_future().add_done_callback(watch.one_done)
     counter = _active
     if counter is not None:
         counter.add(tag, sum(buf.numel() * buf.element_size() for _, buf in bufs), count,
                     len(bufs))
     divisor = mesh.size if op == "mean" else 1
     return PendingReduce(works, bufs, leaves, spec, divisor, tag, counter,
-                         time.perf_counter() - t0, ahead)
+                         time.perf_counter() - t0, ahead, watch)
 
 
 def preduce(tree: Any, mesh_or_group, tag: str = "reduce", *, op: str = "mean",

@@ -56,6 +56,7 @@ from torch.func import grad, jvp, vjp, vmap
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 from ..kernels.flash_ad import second_order_active, second_order_tangents
+from ..obs import telemetry as _telemetry
 
 LossFn = Callable[[Any, Any], torch.Tensor]
 OutFn = Callable[[Any, Any], Any]
@@ -252,7 +253,10 @@ def make_hvp_op(
     else:
         scalar = lambda p: loss_fn(p, batch)
     with second_order_tangents():
-        _, _, lin = _cached_hessian(scalar, params)
+        _, g, lin = _cached_hessian(scalar, params)
+    # Telemetry phase end-marker after the primal pass (a no-op unless a sink
+    # is installed): closes curvature_primal.
+    _telemetry.marker("curvature_primal", g)
     return _lift_cached(lin, params, grad_reduce)
 
 
@@ -269,6 +273,9 @@ def shared_primal_hvp(
     # of one primal pass for g and the Hessian, as in the reference).
     with second_order_tangents():
         f0, g, lin = _cached_hessian(lambda p: loss_fn(p, batch), params)
+    # The fused gradient and primal pass: one marker closes curvature_primal
+    # (there is no separate grad_build phase on the shared path).
+    _telemetry.marker("curvature_primal", f0, g)
     return f0, _maybe_reduce(g, grad_reduce), _lift_cached(lin, params, grad_reduce)
 
 
@@ -297,6 +304,7 @@ def _gnvp_once(model_out_fn: OutFn, out_loss_fn: OutLossFn, params, batch) -> Op
         gz = torch.autograd.grad(out_loss_fn(tree_unflatten(zd, z_spec), batch),
                                  zd, create_graph=True, allow_unused=True)
         gz = [torch.zeros_like(d) if x is None else x for x, d in zip(gz, zd)]
+    _telemetry.marker("curvature_primal", z_leaves)
 
     def product(v, batched):
         vl = tree_leaves(v)

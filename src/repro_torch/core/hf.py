@@ -16,7 +16,14 @@ operator comes from ``core.curvature`` in ``HFConfig.curvature_mode``.
 reduction per cycle of s iterations, in the ``sstep_basis`` polynomial
 basis, the chains paired into block products of the same cached operator);
 ``overlap=True`` double-buffers their cycles and pairs the line-search
-trials. The reference's telemetry hooks have no counterpart yet.
+trials.
+
+Telemetry (``obs.telemetry``): the reference's phase end-markers
+(``step_begin``, ``grad_build``, ``grad_reduce``, ``curvature_primal`` from
+the curvature engine, ``krylov_solve``, ``line_search``,
+``update_damping``), the solve summary, the divergence sentinel's
+rejection event and the ``grad_reduce`` label on the gradient all-reduce.
+Each hook returns at once when no sink is installed.
 
 For a model with flash attention, the gradient and the line search run the
 flash kernels; the curvature engine routes exact-Hessian builds, and this
@@ -35,6 +42,7 @@ from torch.utils._pytree import tree_leaves, tree_map
 from . import damping as damping_mod
 from .._device import check_on, resolve_device
 from ..kernels.flash_ad import second_order_tangents
+from ..obs import telemetry as _telemetry
 from .curvature import (
     MODES as CURVATURE_MODES,
     make_damped,
@@ -205,37 +213,52 @@ def hf_step(
     )
     hidden = not shared and grad_reduce is not None and config.overlap
     pending = None
-    if shared:
-        f0, g, exact = shared_primal_hvp(loss_fn, params, batch, grad_reduce=grad_reduce)
-    else:
-        g, f0 = grad_and_value(loss_fn)(params, batch)
-        f0 = f0.detach()
-        if grad_reduce is not None and not config.overlap:
-            g = grad_reduce(g)
-        elif hidden and hasattr(grad_reduce, "start"):
-            # Overlapped schedule: the gradient reduce is in flight while the
-            # operator is built, which does not depend on it (the reference's
-            # hidden grad-reduce); it is waited on at the Krylov rhs.
-            pending = grad_reduce.start(g)
-        if not use_gn:
-            exact = make_hvp_op(loss_fn, params, hvp_batch, **curv_kw)
-    if use_gn:
-        # The s-step solvers take batched block products of the operator,
-        # which have no rule through the flash Functions: build the GN
-        # operator under the chunked torch route of attention (the same
-        # math; a no-op for a model without flash attention).
-        gn_ctx = second_order_tangents if config.sstep_s > 1 else contextlib.nullcontext
-        with gn_ctx():
-            G = make_gnvp_op(model_out_fn, out_loss_fn, params, hvp_batch, **curv_kw)
-    else:
-        G = exact
+    # Telemetry: phase end-markers and the grad-reduce label (no-ops unless a
+    # sink is installed); step_scope hands state.step to the markers of the
+    # curvature engine and the s-step solvers.
+    _telemetry.marker("step_begin", batch, step=state.step)
+    with _telemetry.step_scope(state.step):
+        if shared:
+            with _telemetry.collective_label("grad_reduce"):
+                f0, g, exact = shared_primal_hvp(loss_fn, params, batch,
+                                                 grad_reduce=grad_reduce)
+        else:
+            g, f0 = grad_and_value(loss_fn)(params, batch)
+            f0 = f0.detach()
+            _telemetry.marker("grad_build", f0, g, step=state.step)
+            if grad_reduce is not None and not config.overlap:
+                with _telemetry.collective_label("grad_reduce"):
+                    g = grad_reduce(g)
+                # Blocking schedule: close the reduce explicitly, so the
+                # curvature-primal span starts after it.
+                _telemetry.marker("grad_reduce", g, step=state.step)
+            elif hidden and hasattr(grad_reduce, "start"):
+                # Overlapped schedule: the gradient reduce is in flight while
+                # the operator is built, which does not depend on it (the
+                # reference's hidden grad-reduce); it is waited on at the
+                # Krylov rhs.
+                with _telemetry.collective_label("grad_reduce"):
+                    pending = grad_reduce.start(g)
+            if not use_gn:
+                exact = make_hvp_op(loss_fn, params, hvp_batch, **curv_kw)
+        if use_gn:
+            # The s-step solvers take batched block products of the operator,
+            # which have no rule through the flash Functions: build the GN
+            # operator under the chunked torch route of attention (the same
+            # math; a no-op for a model without flash attention).
+            gn_ctx = second_order_tangents if config.sstep_s > 1 else contextlib.nullcontext
+            with gn_ctx():
+                G = make_gnvp_op(model_out_fn, out_loss_fn, params, hvp_batch, **curv_kw)
+        else:
+            G = exact
+        if pending is not None:
+            g = pending.wait()
+        elif hidden:
+            # A grad_reduce without a start form: issued after the build.
+            with _telemetry.collective_label("grad_reduce"):
+                g = grad_reduce(g)
     lam = state.lam
     A = make_damped(G, lam)
-    if pending is not None:
-        g = pending.wait()
-    elif hidden:
-        # A grad_reduce without a start form: issued after the build.
-        g = grad_reduce(g)
     b = tree_map(lambda x: -x.float(), g)
     x0 = tree_scale(config.cg_decay, state.prev_delta)
     if config.krylov_jitter > 0.0:
@@ -251,26 +274,32 @@ def hf_step(
     if config.precondition:
         diag = hutchinson_diag(G, b, state.step)
         m_inv = tree_map(lambda d: 1.0 / (torch.abs(d) + lam) ** config.precond_alpha, diag)
-    if config.sstep_s > 1:
-        # s-step solve: one Gram reduction per cycle, the chains paired into
-        # block products of the SAME cached operator (no second primal).
-        kind = config.sstep_solver
-        if kind == "auto":
-            kind = "bicgstab" if config.solver == "bicgstab" else "cg"
-        sstep_fn = sstep_bicgstab if kind == "bicgstab" else sstep_cg
-        res = sstep_fn(A, b, x0, lam=lam, s=config.sstep_s,
-                       max_iters=config.max_cg_iters, tol=config.cg_tol,
-                       backend=krylov_be, A_block=block_op_from_single(A),
-                       basis=config.sstep_basis, overlap=config.overlap)
-    elif config.solver == "bicgstab":
-        res = bicgstab(A, b, x0, lam=lam, max_iters=config.max_cg_iters,
-                       tol=config.cg_tol, M_inv=m_inv, backend=krylov_be)
-    elif m_inv is not None:
-        res = pcg(A, b, x0, lam=lam, M_inv=m_inv, max_iters=config.max_cg_iters,
-                  tol=config.cg_tol, backend=krylov_be)
-    else:
-        res = cg(A, b, x0, lam=lam, max_iters=config.max_cg_iters,
-                 tol=config.cg_tol, backend=krylov_be)
+    with _telemetry.step_scope(state.step):
+        if config.sstep_s > 1:
+            # s-step solve: one Gram reduction per cycle, the chains paired into
+            # block products of the SAME cached operator (no second primal).
+            kind = config.sstep_solver
+            if kind == "auto":
+                kind = "bicgstab" if config.solver == "bicgstab" else "cg"
+            sstep_fn = sstep_bicgstab if kind == "bicgstab" else sstep_cg
+            res = sstep_fn(A, b, x0, lam=lam, s=config.sstep_s,
+                           max_iters=config.max_cg_iters, tol=config.cg_tol,
+                           backend=krylov_be, A_block=block_op_from_single(A),
+                           basis=config.sstep_basis, overlap=config.overlap)
+        elif config.solver == "bicgstab":
+            res = bicgstab(A, b, x0, lam=lam, max_iters=config.max_cg_iters,
+                           tol=config.cg_tol, M_inv=m_inv, backend=krylov_be)
+        elif m_inv is not None:
+            res = pcg(A, b, x0, lam=lam, M_inv=m_inv, max_iters=config.max_cg_iters,
+                      tol=config.cg_tol, backend=krylov_be)
+        else:
+            res = cg(A, b, x0, lam=lam, max_iters=config.max_cg_iters,
+                     tol=config.cg_tol, backend=krylov_be)
+    _telemetry.marker("krylov_solve", res.residual, res.x, step=state.step)
+    _telemetry.solve_event(
+        state.step, iters=res.iters, residual=res.residual, syncs=res.syncs,
+        residual_history=res.residual_history, nc_found=res.nc_found,
+        breakdown=res.breakdown)
 
     # ---- Alg.2 line 7: best descent direction among {solution, NC dir} -----
     # Quadratic-model values from solver byproducts: A·x = b − r.
@@ -320,6 +349,7 @@ def hf_step(
         c=config.ls_c, beta=config.ls_beta, max_backtracks=config.max_backtracks,
         paired=config.overlap,
     )
+    _telemetry.marker("line_search", ls.alpha, ls.f_new, step=state.step)
 
     # ---- Alg.2 lines 8,10: LM damping + parameter update --------------------
     pred_red = ls.alpha * m_lin + ls.alpha**2 * m_quad
@@ -347,6 +377,7 @@ def hf_step(
         rho = torch.where(accept, rho, torch.zeros_like(rho))
         new_params = tree_where(accept, new_params, params)
         delta_taken = tree_where(accept, delta_taken, tree_zeros_like(state.prev_delta))
+    _telemetry.reject_event(state.step, rejected, lam_new, ls.f_new)
 
     if config.solver == "hybrid_cg":
         use_gn_next = torch.logical_and(torch.logical_not(state.use_gn), res.nc_found)
@@ -355,6 +386,7 @@ def hf_step(
 
     new_state = HFState(lam=lam_new, prev_delta=delta_taken, use_gn=use_gn_next,
                         step=state.step + 1)
+    _telemetry.marker("update_damping", lam_new, rho, new_params, step=state.step)
     is_sstep = torch.tensor(config.sstep_s > 1, device=dev)
 
     def sstep_flag(v):

@@ -55,8 +55,10 @@ fallback's ``lax.cond`` is one host read per solve. The small matrices
 ``info != 0`` counts as the non-finite factor that ``jnp.linalg.cholesky``
 returns on a matrix that is not positive definite.
 
-Not ported: the reference's per-cycle ``telemetry.ritz_event`` calls, which
-wait for the telemetry port.
+Telemetry: the adaptive bases emit a ``ritz`` event from the last
+bootstrap Gram and from every adaptive cycle's (``telemetry.ritz_event``,
+the values the cycle computes anyway, read once the step has synchronized;
+a no-op unless a sink is installed).
 """
 from __future__ import annotations
 
@@ -68,6 +70,7 @@ from typing import Any, Callable, Optional, Union
 import torch
 from torch.utils._pytree import tree_leaves
 
+from ..obs import telemetry as _telemetry
 from .blocks import pair_apply
 from .krylov import (
     EPS as _EPS,
@@ -522,6 +525,7 @@ def sstep_cg(A: Op, b, x0, *, lam, s: int, max_iters: int, tol: float = 5e-3,
             brkb = brkb | (brk_ & live)
         ritz, rok = ritz_from_segment(
             Gb[:s_boot + 1, :s_boot + 1], _segment_shift(s_boot + 1, dev))
+        _telemetry.ritz_event(ritz, rok, basis=spec.kind)
         coeffs = spec.coeffs(ritz, rok, s_run)
         nc_lam = _lam_floor(zero_f, ritz, rok, lam)
 
@@ -540,6 +544,7 @@ def sstep_cg(A: Op, b, x0, *, lam, s: int, max_iters: int, tol: float = 5e-3,
             # Free per-cycle refresh from the Gram just reduced.
             ritz, rok = ritz_from_segment(
                 G[:s_run + 1, :s_run + 1], _segment_T(coeffs, s_run + 1))
+            _telemetry.ritz_event(ritz, rok, basis=spec.kind)
             nc_lam = _lam_floor(nc_lam, ritz, rok, lam)
             fresh = spec.coeffs(ritz, rok, s_run)
             refresh = adaptive & rok & torch.logical_not(brk_c)
@@ -770,6 +775,7 @@ def sstep_bicgstab(A: Op, b, x0, *, lam, s: int, max_iters: int,
             brkb = brkb | ((brk_basis_ | brk_rec_) & live)
         Lb = 2 * s_boot + 1
         ritz, rok = ritz_from_segment(Gb[:Lb, :Lb], _segment_shift(Lb, dev))
+        _telemetry.ritz_event(ritz, rok, basis=spec.kind)
         coeffs = spec.coeffs(ritz, rok, 2 * s_run)
         nc_lam = _lam_floor(zero_f, ritz, rok, lam)
 
@@ -786,6 +792,7 @@ def sstep_bicgstab(A: Op, b, x0, *, lam, s: int, max_iters: int,
             hard = hard_basis | brk_rec
             L = 2 * s_run + 1
             ritz, rok = ritz_from_segment(G[:L, :L], _segment_T(coeffs, L))
+            _telemetry.ritz_event(ritz, rok, basis=spec.kind)
             nc_lam = _lam_floor(nc_lam, ritz, rok, lam)
             fresh = spec.coeffs(ritz, rok, 2 * s_run)
             refresh = adaptive & rok & torch.logical_not(brk_basis)

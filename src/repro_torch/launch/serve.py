@@ -26,8 +26,13 @@ routes prefill and decode through the flash-attention and flash-decode
 kernels (their plain versions on the CPU), as the reference's
 ``cfg.use_flash_attention`` does, and the hybrid's Mamba prefill through
 the SSD intra-chunk kernel (``ops.ssd_chunked_pallas``, the reference's
-drop-in for ``ssd_chunked``). ``--telemetry-dir`` raises
-``NotImplementedError`` (telemetry is ROADMAP item 22).
+drop-in for ``ssd_chunked``). ``--telemetry-dir D`` writes
+``D/events-p0.jsonl`` and the merged ``D/trace.json``
+(``obs.telemetry``): ``serve`` emits ``prefill`` and ``decode`` spans and a
+``tok_per_s`` counter; ``serve_continuous`` emits ``queue_depth`` and
+``pages_free`` counters on every scheduler tick and one ``request`` span per
+finished request, with its ``ttft_s`` and ``n_tok``. Read it with
+``python -m repro_torch.obs.report D``.
 """
 from __future__ import annotations
 
@@ -42,6 +47,8 @@ from ..configs import ARCH_IDS, UNPORTED_ARCH_IDS, get_config, get_smoke_config
 from ..data.synthetic import lm_batch
 from ..models.kv_paged import check_invariants, pages_needed, release_slots
 from ..models.transformer import build_model
+from ..obs import telemetry as telemetry_mod
+from ..obs import trace as trace_mod
 
 
 def _setup(arch, smoke, use_flash_attention, device, params):
@@ -72,23 +79,27 @@ def _sync(dev):
 
 @torch.no_grad()
 def serve(arch: str, *, smoke=True, batch_size=4, prompt_len=16, gen_len=16,
-          use_flash_attention=False, device="cuda", params=None, prompts=None, log_fn=print):
+          use_flash_attention=False, device="cuda", params=None, prompts=None,
+          telemetry=None, log_fn=print):
     """Batch-at-once greedy decode. Returns (tokens (B, gen_len) int32 host
     array, stats with prefill_s, decode_s, n_tok, tok_per_s and
     tok_per_s_decode). Parameters come from ``init`` with generator seed 0
     unless ``params`` is given, prompts from ``lm_batch`` with seed 1 unless
-    ``prompts`` is."""
+    ``prompts`` is. With a ``obs.telemetry.Telemetry`` sink the two phases
+    are also emitted as spans and tok/s as a counter."""
     dev, cfg, model, params = _setup(arch, smoke, use_flash_attention, device, params)
     prompt = {"tokens": torch.cat(_prompts(cfg, batch_size, prompt_len, dev, prompts))}
     max_len = prompt_len + gen_len
 
     out = np.zeros((batch_size, gen_len), np.int32)
     _sync(dev)
+    w_start = time.time()
     t_start = time.perf_counter()
     logits, cache = model.prefill(params, prompt, max_len)
     tok = logits[:, -1:].argmax(dim=-1)
     out[:, 0] = tok[:, 0].cpu().numpy()
     t_mid = time.perf_counter()
+    w_mid = time.time()
     t_prefill = t_mid - t_start
 
     for i in range(gen_len - 1):
@@ -100,6 +111,12 @@ def serve(arch: str, *, smoke=True, batch_size=4, prompt_len=16, gen_len=16,
     stats = {"prefill_s": t_prefill, "decode_s": t_decode, "n_tok": n_tok,
              "tok_per_s": n_tok / max(t_prefill + t_decode, 1e-9),
              "tok_per_s_decode": batch_size * (gen_len - 1) / max(t_decode, 1e-9)}
+    if telemetry is not None:
+        telemetry.emit({"ev": "span", "name": "prefill", "t0": w_start, "t1": w_mid,
+                        "batch": batch_size, "prompt_len": prompt_len})
+        telemetry.emit({"ev": "span", "name": "decode", "t0": w_mid, "t1": time.time(),
+                        "batch": batch_size, "gen_len": gen_len})
+        telemetry.counter("tok_per_s", stats["tok_per_s"])
     log_fn(f"prefill {prompt_len} toks x{batch_size}: {t_prefill:.3f}s; "
            f"decode {gen_len - 1} steps: {t_decode:.3f}s "
            f"({stats['tok_per_s']:.1f} tok/s end-to-end, "
@@ -111,7 +128,7 @@ def serve(arch: str, *, smoke=True, batch_size=4, prompt_len=16, gen_len=16,
 def serve_continuous(arch: str, *, smoke=True, batch_size=4, n_requests=8, prompt_len=16,
                      gen_len=16, arrival_steps=None, gen_lens=None, prompts=None, page_size=8,
                      n_pages=None, use_flash_attention=False, device="cuda",
-                     params=None, log_fn=print):
+                     params=None, telemetry=None, log_fn=print):
     """Continuous batching over the paged cache.
 
     ``arrival_steps``: the decode step from which each request may be
@@ -151,6 +168,7 @@ def serve_continuous(arch: str, *, smoke=True, batch_size=4, n_requests=8, promp
     tok = torch.zeros((B, 1), dtype=torch.long, device=dev)
     next_req, done, step, decode_steps = 0, 0, 0, 0
     ttft = [None] * n_requests
+    req_t0 = [None] * n_requests            # admission, on the wall clock
     _sync(dev)
     t0 = time.perf_counter()
     while done < n_requests:
@@ -163,6 +181,7 @@ def serve_continuous(arch: str, *, smoke=True, batch_size=4, n_requests=8, promp
             if int(cache.n_free) < need_pages + 1:
                 break                       # backpressure: wait for frees
             t_admit = time.perf_counter()
+            req_t0[next_req] = time.time()
             logits, cache = model.prefill_paged(params, {"tokens": prompts[next_req]}, cache, b)
             t0k = logits[0, -1].argmax()
             tok[b, 0] = t0k
@@ -170,6 +189,10 @@ def serve_continuous(arch: str, *, smoke=True, batch_size=4, n_requests=8, promp
             out[next_req, 0] = int(t0k)     # host read: the first token is real
             ttft[next_req] = time.perf_counter() - t_admit
             next_req += 1
+        if telemetry is not None:
+            queued = sum(1 for r in range(next_req, n_requests) if arrival_steps[r] <= step)
+            telemetry.counter("queue_depth", queued)
+            telemetry.counter("pages_free", int(cache.n_free))
         active_h = [s >= 0 for s in slot_req]
         if not any(active_h):
             step += 1                       # idle: nothing arrived yet
@@ -186,6 +209,11 @@ def serve_continuous(arch: str, *, smoke=True, batch_size=4, n_requests=8, promp
             out[slot_req[b], n_gen[b]] = toks[b]
             n_gen[b] += 1
             if n_gen[b] == gen_lens[slot_req[b]]:   # finished: free the slot and pages
+                rid = slot_req[b]
+                if telemetry is not None:
+                    telemetry.emit({"ev": "span", "name": "request", "req": rid, "slot": b,
+                                    "t0": req_t0[rid], "t1": time.time(),
+                                    "ttft_s": ttft[rid], "n_tok": gen_lens[rid]})
                 retire.append(b)
                 done += 1
                 slot_req[b] = -1
@@ -224,18 +252,26 @@ def main(argv=None):
                          "kernels and the hybrid's Mamba prefill through the SSD kernel "
                          "(their plain versions on the CPU)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    ap.add_argument("--telemetry-dir", default=None)
+    ap.add_argument("--telemetry-dir", default=None,
+                    help="write serving telemetry (request spans with TTFT, queue-depth and "
+                         "page-pool counters) as events-p0.jsonl and the merged trace.json; "
+                         "read with python -m repro_torch.obs.report DIR")
     args = ap.parse_args(argv)
-    if args.telemetry_dir is not None:
-        raise NotImplementedError("--telemetry-dir: telemetry (ROADMAP item 22) is not "
-                                  "ported yet")
+    sink = None
+    if args.telemetry_dir:
+        sink = telemetry_mod.Telemetry(
+            args.telemetry_dir, meta=dict(kind="serve", arch=args.arch,
+                                          continuous=args.continuous))
     kw = dict(smoke=args.smoke, batch_size=args.batch_size, prompt_len=args.prompt_len,
               gen_len=args.gen_len, use_flash_attention=args.flash_attention,
-              device=args.device)
+              device=args.device, telemetry=sink)
     if args.continuous:
         gen = serve_continuous(args.arch, n_requests=args.n_requests, **kw)[0]
     else:
         gen = serve(args.arch, **kw)[0]
+    if sink is not None:
+        sink.close()
+        trace_mod.merge_dir(args.telemetry_dir)
     print("generated token ids (first row):", gen[0].tolist())
 
 
